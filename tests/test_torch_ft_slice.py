@@ -1,0 +1,151 @@
+"""The port's fault-tolerant training slice on the CPU, end to end: the
+port's own native lighthouse, two replica groups of the port's transformer
+over the host TCP ring, a group that leaves and rejoins and heals over
+HTTP; plus the import boundary (the port never loads JAX or the JAX
+package)."""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from torchft_tpu_torch._native import Lighthouse
+from torchft_tpu_torch.backends.host import HostCommunicator
+from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.models.transformer import (Transformer,
+                                                  chunked_causal_lm_loss,
+                                                  tiny_config)
+from torchft_tpu_torch.parallel.step import FTTrainer
+
+pytestmark = pytest.mark.port
+
+SEQ = 32
+
+
+def _group(gid: int, seed: int, lighthouse: str) -> FTTrainer:
+    cfg = tiny_config(dtype=torch.float32, num_layers=1, embed_dim=64)
+    model = Transformer(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+
+    def loss_fn(m, tokens):
+        return chunked_causal_lm_loss(m(tokens, return_hidden=True),
+                                      m.lm_head_kernel(), tokens,
+                                      chunk_size=16)
+
+    return FTTrainer(
+        model=model, loss_fn=loss_fn,
+        optimizer=torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                    weight_decay=1e-4, eps=1e-8),
+        manager_factory=lambda load, save: Manager(
+            comm=HostCommunicator(timeout_sec=30), load_state_dict=load,
+            state_dict=save, min_replica_size=1, replica_id=f"g{gid}",
+            lighthouse_addr=lighthouse, checkpoint_bind_host="127.0.0.1",
+            timeout_ms=30_000, quorum_timeout_ms=30_000))
+
+
+def _run(trainer: FTTrainer, gid: int, until: int, out: dict) -> None:
+    try:
+        m = trainer.manager
+        while m.current_step() < until:
+            # Batches from (group, step): the two groups see different data.
+            rng = np.random.default_rng((gid, m.current_step()))
+            tokens = torch.tensor(rng.integers(0, 256, (2, SEQ)))
+            _, committed = trainer.train_step(tokens)
+            out.setdefault("committed", []).append(committed)
+    except BaseException as e:  # noqa: BLE001 — surfaced by the test
+        out["error"] = e
+
+
+def _threads(*jobs) -> None:
+    ts = [threading.Thread(target=_run, args=job) for job in jobs]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=90)
+        assert not t.is_alive(), "a replica group hung"
+
+
+def test_two_groups_leave_rejoin_heal_bitwise():
+    torch.set_num_threads(2)
+    # fast_path=False: a fast-path answer is computed from the cached
+    # quorum, where a peer that has not yet asked this step still carries
+    # its previous step — the first group to ask then counts itself as the
+    # only participant and divides the ring sum by 1 while its peer divides
+    # by 2 (ROADMAP.md, C). Every round takes the full rendezvous instead.
+    lh = Lighthouse(bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=200,
+                    quorum_tick_ms=20, fast_path=False)
+    g0 = g1 = g1b = None
+    try:
+        g0 = _group(0, seed=0, lighthouse=lh.address())
+        g1 = _group(1, seed=1, lighthouse=lh.address())
+        r0, r1 = {}, {}
+        _threads((g0, 0, 4, r0), (g1, 1, 4, r1))
+        assert "error" not in r0 and "error" not in r1, (r0, r1)
+        # Group 1 healed at step 1 (the non-primary of the first quorum),
+        # so both hold the same state whatever their init seeds were.
+        assert g1.manager.metrics()["heal_count"] == 1
+        for name, p in g0.params.items():
+            assert torch.equal(p, g1.params[name]), name
+        g1.shutdown()
+        g1 = None
+
+        g1b = _group(1, seed=7, lighthouse=lh.address())
+        r1b = {}
+        _threads((g0, 0, 6, r0), (g1b, 1, 6, r1b))
+        assert "error" not in r0 and "error" not in r1b, (r0, r1b)
+        assert g1b.manager.metrics()["heal_count"] == 1
+        assert r1b["committed"] == [True, True]
+        assert g0.manager.current_step() == g1b.manager.current_step() == 6
+        assert g0.manager.metrics()["committed_steps"] == 6
+        for name, p in g0.params.items():
+            assert torch.equal(p, g1b.params[name]), name
+            s0, s1 = g0.optimizer.state[p], g1b.optimizer.state[
+                g1b.params[name]]
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(s0[key], s1[key]), (name, key)
+    finally:
+        for g in (g0, g1, g1b):
+            if g is not None:
+                g.shutdown()
+        lh.shutdown()
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import torchft_tpu_torch, torchft_tpu_torch.train_lm\n"
+        "import torchft_tpu_torch.ops.flash_attention\n"
+        "import torchft_tpu_torch.ops.fused_bwd_check\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'torchft_tpu')]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
+    """chip_smoke.py exits non-zero and prints no result line on a machine
+    without a GPU, and in a directory holding nothing else of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "chip_smoke.py")
+    cwd = root
+    if alone:
+        cwd = str(tmp_path)
+        script = shutil.copy(script, tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

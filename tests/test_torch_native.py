@@ -1,0 +1,243 @@
+"""The port's control-plane core: a verbatim copy of the JAX package's C++
+sources, built into the port's own build directory with message classes
+generated from its proto (no protobuf runtime), and reachable through the
+port's ctypes bridge."""
+
+from __future__ import annotations
+
+import filecmp
+import os
+import random
+import shutil
+import subprocess
+import threading
+
+import pytest
+
+from torchft_tpu_torch import _native
+from torchft_tpu_torch import _protogen as protogen
+
+pytestmark = pytest.mark.port
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_CORE = os.path.join(ROOT, "torchft_tpu", "_core")
+PORT_CORE = os.path.join(ROOT, "torchft_tpu_torch", "_core")
+SOURCES = ["capi.cc", "lighthouse.cc", "lighthouse.h", "manager.cc",
+           "manager.h", "rpc.cc", "rpc.h", "store.cc", "store.h",
+           "CMakeLists.txt", os.path.join("proto", "torchft.proto")]
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_core_sources_are_byte_identical(name):
+    assert filecmp.cmp(os.path.join(JAX_CORE, name),
+                       os.path.join(PORT_CORE, name), shallow=False)
+
+
+def test_core_copy_is_complete():
+    """Every C++ source of the JAX core is in the port, except the C++
+    test binary's."""
+    jax_files = {n for n in os.listdir(JAX_CORE)
+                 if n.endswith((".cc", ".h"))} - {"core_test.cc"}
+    port_files = {n for n in os.listdir(PORT_CORE)
+                  if n.endswith((".cc", ".h"))}
+    assert jax_files == port_files
+
+
+PROTO = os.path.join(PORT_CORE, "proto", "torchft.proto")
+with open(PROTO) as _f:
+    MESSAGES = [m.name for m in protogen.parse(_f.read())[1]]
+
+
+@pytest.fixture(scope="module")
+def codec(tmp_path_factory):
+    """``run(name, data) -> bytes | None``: the generated C++ class
+    ``name`` parses ``data`` and writes itself back (None when the parse
+    fails)."""
+    d = tmp_path_factory.mktemp("codec")
+    with open(PROTO) as f:
+        (d / "torchft.pb.h").write_text(protogen.generate(f.read()))
+    cases = "\n".join(
+        f'  if (name == "{m}") {{ {m} m; ok = m.ParseFromString(in); '
+        f"out = m.SerializeAsString(); }}" for m in MESSAGES)
+    (d / "main.cc").write_text(
+        '#include <iostream>\n#include <iterator>\n#include "torchft.pb.h"\n'
+        "using namespace torchft_tpu;\n"
+        "int main(int argc, char** argv) {\n"
+        "  std::string name = argv[1], out;\n"
+        "  std::string in((std::istreambuf_iterator<char>(std::cin)),\n"
+        "                 std::istreambuf_iterator<char>());\n"
+        "  bool ok = false;\n" + cases + "\n"
+        "  if (!ok) return 3;\n"
+        "  std::cout << out;\n  return 0;\n}\n")
+    exe = str(d / "codec")
+    subprocess.run(["g++", "-std=c++17", "-O1", "-Wall", "-Werror", "-o",
+                    exe, str(d / "main.cc")], check=True)
+
+    def run(name: str, data: bytes):
+        proc = subprocess.run([exe, name], input=data, capture_output=True)
+        assert proc.returncode in (0, 3), proc.stderr
+        return proc.stdout if proc.returncode == 0 else None
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def protobuf_classes(tmp_path_factory):
+    """The proto's message classes from protobuf itself: ``protoc``'s
+    descriptors, Python protobuf's runtime."""
+    pytest.importorskip("google.protobuf")
+    from google.protobuf import descriptor_pb2, descriptor_pool
+    from google.protobuf import message_factory
+
+    protoc = shutil.which("protoc")
+    if protoc is None:
+        pytest.skip("no protoc to read the proto with")
+    out = tmp_path_factory.mktemp("desc") / "torchft.desc"
+    subprocess.run([protoc, f"--descriptor_set_out={out}", "-I",
+                    os.path.dirname(PROTO), PROTO], check=True)
+    fds = descriptor_pb2.FileDescriptorSet.FromString(out.read_bytes())
+    pool = descriptor_pool.DescriptorPool()
+    for fd in fds.file:
+        pool.Add(fd)
+    return {m: message_factory.GetMessageClass(
+        pool.FindMessageTypeByName(f"torchft_tpu.{m}")) for m in MESSAGES}
+
+
+def _fill(msg, rng: random.Random, depth: int = 0) -> None:
+    """Random values in every field of ``msg``, zeros and empties
+    included (proto3 leaves those off the wire)."""
+    from google.protobuf.descriptor import FieldDescriptor as FD
+
+    for fd in msg.DESCRIPTOR.fields:
+        repeated = fd.is_repeated
+        count = rng.randrange(4) if repeated else 1
+        for _ in range(count):
+            if fd.type == FD.TYPE_MESSAGE:
+                sub = (getattr(msg, fd.name).add() if repeated
+                       else getattr(msg, fd.name))
+                sub.SetInParent()
+                if depth < 3 and rng.random() < 0.8:
+                    _fill(sub, rng, depth + 1)
+                continue
+            if rng.random() < 0.2:
+                value = {FD.TYPE_STRING: "", FD.TYPE_BYTES: b"",
+                         FD.TYPE_BOOL: False, FD.TYPE_DOUBLE: 0.0}.get(
+                             fd.type, 0)
+            elif fd.type == FD.TYPE_INT64:
+                value = rng.choice([rng.randrange(-2**63, 2**63),
+                                    rng.randrange(-300, 300)])
+            elif fd.type == FD.TYPE_UINT64:
+                value = rng.choice([rng.randrange(2**64), rng.randrange(300)])
+            elif fd.type == FD.TYPE_BOOL:
+                value = True
+            elif fd.type == FD.TYPE_DOUBLE:
+                value = rng.choice([rng.uniform(-1e6, 1e6), -0.0,
+                                    float("inf"), 5e-324])
+            elif fd.type == FD.TYPE_STRING:
+                value = "".join(rng.choice("ab:é✓\n0")
+                                for _ in range(rng.randrange(1, 200)))
+            elif fd.type == FD.TYPE_BYTES:
+                value = rng.randbytes(rng.randrange(1, 300))
+            else:
+                raise AssertionError(f"unhandled field type {fd.type}")
+            if repeated:
+                getattr(msg, fd.name).append(value)
+            else:
+                setattr(msg, fd.name, value)
+
+
+@pytest.mark.parametrize("name", MESSAGES)
+def test_generated_messages_write_protobufs_bytes(name, codec,
+                                                  protobuf_classes):
+    """What protobuf writes, the generated class reads and writes back
+    byte for byte, for random contents of every field."""
+    rng = random.Random(f"{name}-7")
+    for _ in range(8):
+        msg = protobuf_classes[name]()
+        _fill(msg, rng)
+        data = msg.SerializeToString()
+        assert codec(name, data) == data
+        assert protobuf_classes[name].FromString(codec(name, data)) == msg
+
+
+def test_generated_parse_skips_unknown_fields(codec, protobuf_classes):
+    msg = protobuf_classes["QuorumMember"](replica_id="g0", step=-5)
+    data = msg.SerializeToString()
+    unknown = (bytes([(9 << 3) | 0, 0x96, 0x01])       # varint
+               + bytes([(10 << 3) | 1]) + bytes(8)      # fixed64
+               + bytes([(11 << 3) | 2, 3]) + b"abc"     # length-delimited
+               + bytes([(12 << 3) | 5]) + bytes(4)      # fixed32
+               + bytes([(1 << 3) | 0, 7]))  # a known field, wrong wire type
+    assert codec("QuorumMember", unknown + data) == data
+
+
+@pytest.mark.parametrize("data", [b"\x0a\x05ab", b"\x20\x80", b"\x00\x01",
+                                  b"\x0b", b"\x0a\xff\xff\xff\xff\x0f"],
+                         ids=["short-string", "short-varint", "field-0",
+                              "group", "huge-length"])
+def test_generated_parse_rejects_malformed_bytes(data, codec):
+    assert codec("QuorumMember", data) is None
+
+
+@pytest.mark.parametrize("proto", [
+    'syntax = "proto2"; message A { optional int64 x = 1; }',
+    'syntax = "proto3"; enum E { Z = 0; }',
+    'syntax = "proto3"; message A { int32 x = 1; }',
+    'syntax = "proto3"; message A { repeated int64 x = 1; }',
+    'syntax = "proto3"; message A { map<string, int64> x = 1; }',
+    'syntax = "proto3"; message A { message B {} B b = 1; }',
+    'syntax = "proto3"; message A { oneof o { int64 x = 1; } }',
+    'syntax = "proto3"; message A { int64 x = 1 [deprecated = true]; }',
+    'syntax = "proto3"; message A { int64 x = 1; bool y = 1; }',
+    'syntax = "proto3"; message A { B b = 1; } message B { A a = 1; }',
+], ids=["proto2", "enum", "int32", "repeated-scalar", "map", "nested",
+        "oneof", "option", "duplicate-number", "cycle"])
+def test_generator_refuses_what_it_does_not_cover(proto):
+    with pytest.raises(ValueError):
+        protogen.generate(proto)
+
+
+def test_library_builds_outside_the_source_tree():
+    path = _native.library_path()
+    assert path.startswith(os.path.join(ROOT, "torchft_tpu_torch",
+                                        "_build", "core"))
+    assert not os.path.exists(os.path.join(PORT_CORE, "build"))
+
+
+def test_quorum_and_vote_through_the_bridge():
+    """Two single-rank groups meet at the port's lighthouse: the second
+    heals at step 1, both vote, and the store round-trips a key."""
+    lh = _native.Lighthouse(bind="127.0.0.1:0", min_replicas=2,
+                            join_timeout_ms=200, quorum_tick_ms=20)
+    stores = [_native.Store(bind="127.0.0.1:0") for _ in range(2)]
+    servers = [_native.ManagerServer(f"g{i}:x", lh.address(),
+                                     store_addr=stores[i].address(),
+                                     bind="127.0.0.1:0")
+               for i in range(2)]
+    results = [None, None]
+    try:
+        def run(i):
+            client = _native.ManagerClient(servers[i].address())
+            q = client.quorum(rank=0, step=1, checkpoint_server_addr=f"c{i}",
+                              timeout_ms=10_000)
+            results[i] = (q, client.should_commit(0, 1, True,
+                                                  timeout_ms=10_000))
+
+        ts = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=30)
+        (q0, c0), (q1, c1) = results
+        assert q0.quorum_id == q1.quorum_id > 0
+        assert q0.replica_world_size == 2 and c0 and c1
+        assert sorted([q0.heal, q1.heal]) == [False, True]
+        sc = _native.StoreClient(stores[0].address())
+        sc.set("k", b"v")
+        assert sc.get("k") == b"v"
+    finally:
+        for s in servers:
+            s.shutdown()
+        for s in stores:
+            s.shutdown()
+        lh.shutdown()

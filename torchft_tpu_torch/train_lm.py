@@ -1,0 +1,205 @@
+"""Fault-tolerant LM training across replica groups: the port of
+``examples/train_lm.py``.
+
+One process per replica group; the groups average gradients over the host
+TCP ring, vote on every commit, and a group that (re)joins heals from a
+healthy peer's live state over HTTP.
+
+    # quorum server + dashboard
+    python -m torchft_tpu_torch.lighthouse --bind 0.0.0.0:29510 \\
+        --min-replicas 1 --no-fast-path
+
+    # one per group k in {0, 1}
+    REPLICA_GROUP_ID=$k NUM_REPLICA_GROUPS=2 \\
+    TORCHFT_LIGHTHOUSE=localhost:29510 MODEL=llama2_7b NUM_LAYERS=2 \\
+    BATCH_SIZE=1 SEQ_LEN=2048 python -m torchft_tpu_torch.train_lm
+
+Knobs (environment): ``REPLICA_GROUP_ID``, ``NUM_REPLICA_GROUPS``,
+``TOTAL_STEPS``, ``BATCH_SIZE``, ``SEQ_LEN``, ``MODEL`` (``tiny`` or
+``llama2_7b``; the latter runs the flash-attention kernels),
+``NUM_LAYERS`` (cuts the model's depth), ``INIT_SEED`` (weight init; a
+group that joins a running job heals to the job's weights whatever its
+seed), ``TOKENS_FILE`` / ``DATA_DIR`` (corpus; a synthetic one is made
+when absent), ``REPORT_FILE``: a JSON file rewritten after every
+step with the losses, votes, step walls, manager timings, kernel launch
+counts and, at the end, a sha256 of the parameters and optimizer state,
+and ``HOLD_AFTER_STEP``: a fault drill — after committing that step the
+process stops stepping and waits to be killed (``"held": true`` in the
+report). ``OVERLAP_STEPS`` must be 0; durable checkpoints and elastic data
+are not ported yet. ``--device`` defaults to ``cuda``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import logging
+import os
+import tempfile
+import time
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from torchft_tpu_torch.backends.host import HostCommunicator
+from torchft_tpu_torch.data import (DistributedSampler, StatefulLoader,
+                                    TokenFileDataset)
+from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  chunked_causal_lm_loss,
+                                                  llama2_7b_config,
+                                                  tiny_config)
+from torchft_tpu_torch.ops import flash_attention as fa
+from torchft_tpu_torch.parallel.step import FTTrainer
+from torchft_tpu_torch.utils import tree_flatten_with_path
+
+logger = logging.getLogger("train_lm")
+
+
+def make_config() -> TransformerConfig:
+    """Size from the environment: ``tiny`` (plain attention) or Llama-2-7B
+    widths with the flash-attention kernels, depth cut by NUM_LAYERS."""
+    if os.environ.get("MODEL", "tiny") == "tiny":
+        return tiny_config(max_seq_len=128)
+    overrides: Dict[str, Any] = dict(attention_fn=fa.flash_attention,
+                                     remat=True)
+    if os.environ.get("NUM_LAYERS"):
+        overrides["num_layers"] = int(os.environ["NUM_LAYERS"])
+    return llama2_7b_config(**overrides)
+
+
+def state_hash(trainer: FTTrainer) -> str:
+    """sha256 over every parameter and optimizer-state tensor, in the
+    serializer's sorted-key order."""
+    h = hashlib.sha256()
+    for path, leaf in tree_flatten_with_path(trainer.state_dict())[0]:
+        h.update("/".join(map(str, path)).encode())
+        if isinstance(leaf, torch.Tensor):
+            h.update(leaf.detach().cpu().contiguous().view(-1)
+                     .view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(leaf).encode())
+    return h.hexdigest()
+
+
+def main(argv: Any = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to run on "
+                           "the CPU")
+    logging.basicConfig(level=logging.INFO)
+    replica_group = int(os.environ.get("REPLICA_GROUP_ID", 0))
+    num_groups = int(os.environ.get("NUM_REPLICA_GROUPS", 2))
+    total_steps = int(os.environ.get("TOTAL_STEPS", 50))
+    batch_size = int(os.environ.get("BATCH_SIZE", 8))
+    seq_len = int(os.environ.get("SEQ_LEN", 128))
+    seed = int(os.environ.get("INIT_SEED", 0))
+    report_file = os.environ.get("REPORT_FILE")
+    hold = os.environ.get("HOLD_AFTER_STEP")
+    if int(os.environ.get("OVERLAP_STEPS", 0)) != 0:
+        raise ValueError("OVERLAP_STEPS: the overlap engine is not ported")
+
+    cfg = make_config()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Transformer(cfg, device=device, generator=gen)
+
+    tokens_file = os.environ.get("TOKENS_FILE")
+    if not tokens_file:
+        tokens_file = os.path.join(
+            os.environ.get("DATA_DIR", os.path.join(
+                tempfile.gettempdir(), "torchft_tpu_torch_data")),
+            f"synth_tokens_v{cfg.vocab_size}.npy")
+        if not os.path.exists(tokens_file):
+            # Per-group temp file, then an atomic rename: a peer starting
+            # at the same time never memmaps a half-written file.
+            rng = np.random.default_rng(0)
+            tmp = f"{tokens_file}.{replica_group}.{os.getpid()}.tmp.npy"
+            TokenFileDataset.write(
+                tmp, rng.integers(0, cfg.vocab_size, size=4096 * seq_len)
+                .astype(np.uint16 if cfg.vocab_size <= 65536 else np.int32))
+            os.replace(tmp, tokens_file)
+    dataset = TokenFileDataset(tokens_file, seq_len=seq_len)
+    sampler = DistributedSampler(
+        dataset_size=len(dataset), replica_group=replica_group,
+        num_replica_groups=num_groups, batch_size=batch_size, seed=0)
+    batches = StatefulLoader(dataset, sampler, prefetch=2)
+
+    def loss_fn(m: Transformer, batch: Dict[str, np.ndarray]
+                ) -> torch.Tensor:
+        tokens = torch.from_numpy(batch["tokens"]).to(device)
+        hidden = m(tokens, return_hidden=True)
+        return chunked_causal_lm_loss(hidden, m.lm_head_kernel(), tokens)
+
+    trainer = FTTrainer(
+        model=model, loss_fn=loss_fn,
+        # optax.adamw(3e-4)'s hyperparameters (weight decay 1e-4).
+        optimizer=torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                    weight_decay=1e-4, eps=1e-8),
+        manager_factory=lambda load, save: Manager(
+            comm=HostCommunicator(),
+            load_state_dict=load, state_dict=save, min_replica_size=1,
+            replica_id=f"train_lm_{replica_group}"))
+    m = trainer.manager
+    logger.info("replica group %d/%d up (%s)", replica_group, num_groups,
+                m.replica_id())
+
+    report: Dict[str, Any] = {"group": replica_group, "seed": seed,
+                              "losses": [], "committed": [], "step_s": []}
+
+    def write_report(final: bool) -> None:
+        if not report_file:
+            return
+        mx = m.metrics()
+        report.update(
+            step=m.current_step(), heal_count=int(mx["heal_count"]),
+            heal_ms=round(mx["heal_ms_total"], 1),
+            allreduce_ms=round(mx["allreduce_ms_total"], 1),
+            allreduce_count=int(mx["allreduce_count"]),
+            launches=dict(fa.LAUNCHES),
+            params_on_cpu=sum(p.device.type == "cpu"
+                              for p in trainer.params.values())
+            if device.type != "cpu" else 0)
+        if final:
+            report["state_hash"] = state_hash(trainer)
+        tmp = f"{report_file}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(report, f)
+        os.replace(tmp, report_file)
+
+    try:
+        while m.current_step() < total_steps:
+            t0 = time.perf_counter()
+            loss, committed = trainer.train_step(next(batches))
+            report["losses"].append(float(loss))
+            report["committed"].append(bool(committed))
+            report["step_s"].append(round(time.perf_counter() - t0, 3))
+            logger.info("step=%d loss=%.4f committed=%s participants=%d "
+                        "timings=%s", m.current_step(), float(loss),
+                        committed, m.num_participants(),
+                        {k: round(v, 3)
+                         for k, v in trainer.last_step_timings.items()})
+            write_report(final=False)
+            if hold is not None and m.current_step() >= int(hold):
+                report["held"] = True
+                write_report(final=False)
+                logger.info("holding after step %d", m.current_step())
+                while True:
+                    time.sleep(1)
+        logger.info("done: %d steps, %d batches committed",
+                    m.current_step(), m.batches_committed())
+        write_report(final=True)
+    finally:
+        try:
+            batches.shutdown()
+        finally:
+            trainer.shutdown()
+
+
+if __name__ == "__main__":
+    main()
