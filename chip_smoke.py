@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # every phase, one card
-    python3 chip_smoke.py --phases kernels # a subset: card,kernels,ft,split
+    python3 chip_smoke.py                     # every phase, one card
+    python3 chip_smoke.py --phases kernels,sp # a subset of
+                                              # card,kernels,ft,split,sp
 
 Phases:
 
@@ -11,10 +12,15 @@ Phases:
    ``torchft_tpu_torch/_core``), both started together.
 2. **kernels** — each of the four flash-attention kernels against its
    plain PyTorch version on the same inputs, at the slice's shape and at
-   GQA / non-causal / end-aligned / odd-length shapes; times of kernel,
-   plain version and ``scaled_dot_product_attention`` (a yardstick only,
-   never called by the port) at the slice's shape; then the fused-vs-split
-   backward check of ``torchft_tpu_torch.ops.fused_bwd_check``.
+   GQA / non-causal / end-aligned / odd-length shapes, in the static mode
+   and in the ring's shift mode (shift Sk = full, 0 = causal, -Sk =
+   blocked, and a partial shift at which every row sees a key, with a
+   nonzero lse cotangent); times of kernel, plain version and
+   ``scaled_dot_product_attention`` (a yardstick only, never called by the
+   port) at the slice's shape, the shift mode at the ring's per-step shape
+   (shift = Sk, its yardstick SDPA non-causal, which returns no lse); then
+   the fused-vs-split backward check of
+   ``torchft_tpu_torch.ops.fused_bwd_check``.
 3. **ft** — the main path: a native lighthouse and two replica groups
    (``python -m torchft_tpu_torch.train_lm``) on this one card at Llama-2-7B
    widths cut to 2 layers, batch 1 x 2048 tokens. Three steps, SIGKILL of
@@ -25,6 +31,17 @@ Phases:
 4. **split** — the split-backward path: one training step of the same
    model at a short sequence (fewer than 4 q tiles), which takes the dq and
    dk/dv kernels instead of the fused one.
+5. **sp** — the sequence-parallel path: two processes on this card form a
+   gloo sp group (``chip_smoke.py --sp-worker``); each builds the same
+   Llama-2-7B-width 2-layer model with ring attention and takes three
+   ``SPTrainer`` steps on one 4096-token sequence (2048 per rank), then
+   one step at 256 tokens (128 per rank, fewer than 4 q tiles: the split
+   backward's shift mode). Checks: equal parameter hashes on both ranks
+   after every step, the shift-mode kernels launched, step 1's loss and
+   gradient norm against one process running the same model on the whole
+   sequence with the static kernels, and the ring-attention layer's output
+   and gradients against static ``flash_attention`` on the same
+   4096-token inputs.
 
 Launch counts are reset just before each driven path and read just after
 it. The line before the last is a JSON object with one entry per kernel;
@@ -36,6 +53,7 @@ non-zero before that line. float32 matmuls are pinned to full precision
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -64,21 +82,38 @@ FWD_REL = 1e-2
 LSE_ABS = 1e-3
 BWD_REL = 2e-2
 
+# Sp phase: agreement of step 1 with the one-process static-kernel run.
+# The H100 reads 8.2e-6 (loss) and 2.5e-5 (gradient norm); the limits sit
+# about 12x and 40x above, room for bf16 rounding order and no more.
+SP_LOSS_REL = 1e-4
+SP_GRAD_NORM_REL = 1e-3
+
+# Launch-count key -> (entry name, TPU kernel); the shift mode is the TPU
+# kernels' dynamic_shift mode (flash_attention_block, :777-811).
+_TPU = "torchft_tpu/ops/flash_attention.py"
 KERNELS = {
-    "fwd": ("flash_fwd", "torchft_tpu/ops/flash_attention.py:136"),
-    "bwd_dq": ("flash_bwd_dq", "torchft_tpu/ops/flash_attention.py:344"),
-    "bwd_dkdv": ("flash_bwd_dkdv", "torchft_tpu/ops/flash_attention.py:380"),
-    "bwd_fused": ("flash_bwd_fused",
-                  "torchft_tpu/ops/flash_attention.py:420"),
+    "fwd": ("flash_fwd", f"{_TPU}:136"),
+    "bwd_dq": ("flash_bwd_dq", f"{_TPU}:344"),
+    "bwd_dkdv": ("flash_bwd_dkdv", f"{_TPU}:380"),
+    "bwd_fused": ("flash_bwd_fused", f"{_TPU}:420"),
+    "fwd_shift": ("flash_fwd (shift)", f"{_TPU}:136"),
+    "bwd_dq_shift": ("flash_bwd_dq (shift)", f"{_TPU}:344"),
+    "bwd_dkdv_shift": ("flash_bwd_dkdv (shift)", f"{_TPU}:380"),
+    "bwd_fused_shift": ("flash_bwd_fused (shift)", f"{_TPU}:420"),
 }
-# (name, B, S, Sk, H, Hkv, D, causal); the first is the slice's shape.
+# (name, B, S, Sk, H, Hkv, D, causal); the first is the slice's shape,
+# "sp_split" the sp phase's short step (S_local = 128 per rank).
 CASES = [
     ("slice", 1, 2048, 2048, 32, 32, 128, True),
+    ("sp_split", 1, 128, 128, 32, 32, 128, True),
     ("gqa", 2, 256, 256, 8, 2, 64, True),
     ("noncausal", 2, 512, 512, 8, 8, 128, False),
     ("end_aligned", 1, 384, 1024, 8, 4, 128, True),
     ("odd", 1, 999, 999, 8, 8, 64, True),
 ]
+# Shift-mode cases beyond (Sk, 0, -Sk) on each case above: a partial shift
+# at which every row still sees a key, -(BQ // 2) at Sk = S + BQ.
+PARTIAL_SHIFT = ("partial", 1, 256, 320, 8, 2, 128, -32)
 
 
 class SmokeError(RuntimeError):
@@ -148,20 +183,23 @@ def phase_card() -> str:
 # ------------------------------------------------------------ phase 2
 
 
-def _visible_pairs(s: int, sk: int, causal: bool) -> int:
-    if not causal:
+def _visible_pairs(s: int, sk: int, causal: bool, shift=None) -> int:
+    """Visible (query, key) entries: query i sees keys
+    k <= (sk - s) + i + shift (shift 0 when only causal)."""
+    if shift is None and not causal:
         return s * sk
-    off = sk - s
-    return s * (s + 1) // 2 + off * s
+    off = sk - s + (shift or 0)
+    return sum(max(0, min(sk, off + i + 1)) for i in range(s))
 
 
 def bounds(name: str, b: int, s: int, sk: int, h: int, h_kv: int, d: int,
-           causal: bool) -> tuple:
+           causal: bool, shift=None) -> tuple:
     """(bound_ms, bound_by) of one kernel call at these shapes: the larger
     of its tensor-core time (matmul flops on the visible entries at the
     bf16 peak) and its memory time (each input read once, each output
     written once, at the HBM rate)."""
-    pairs = b * h * _visible_pairs(s, sk, causal)
+    pairs = b * h * _visible_pairs(s, sk, causal, shift)
+    name = name.removesuffix("_shift")
     mats = {"fwd": 2, "bwd_dq": 3, "bwd_dkdv": 4, "bwd_fused": 5}[name]
     flops = 2.0 * mats * pairs * d
     q_bytes = 2 * b * s * h * d
@@ -180,21 +218,79 @@ def bounds(name: str, b: int, s: int, sk: int, h: int, h_kv: int, d: int,
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
+def _shift_check(rows: dict, case: str, q, k, v, do, shift: int,
+                 gen: torch.Generator) -> tuple:
+    """The four kernels in shift mode against their plain versions, with
+    a nonzero lse cotangent folded into delta (as flash_attention_block's
+    backward folds it). Returns the kernel arguments for timing."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    h, h_kv, sk = q.shape[2], k.shape[2], k.shape[1]
+    qh, kh, vh = fa.to_bh(q), fa.to_bh(k), fa.to_bh(v)
+    o, lse = fa.flash_fwd(qh, kh, vh, h, h_kv, False, shift)
+    o_p, lse_p = fa.fwd_plain(qh, kh, vh, h, h_kv, False, shift)
+    doh, delta = fa.bwd_inputs(do, o)
+    g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
+    args = (qh, kh, vh, doh, lse, delta - g_lse, h, h_kv, False, shift)
+    dq = fa.flash_bwd_dq(*args)
+    dk_s, dv_s = fa.flash_bwd_dkdv(*args)
+    dk_f, dv_f, dq_f = fa.flash_bwd_fused(*args)
+    dq_p, dk_p, dv_p = fa.bwd_plain(*args)
+    torch.cuda.synchronize()
+    outs = {"fwd_shift": [(o, o_p)], "bwd_dq_shift": [(dq, dq_p)],
+            "bwd_dkdv_shift": [(dk_s, dk_p), (dv_s, dv_p)],
+            "bwd_fused_shift": [(dq_f, dq_p), (dk_f, dk_p), (dv_f, dv_p)]}
+    errs = {n: max(rel_err(a, b) for a, b in pairs)
+            for n, pairs in outs.items()}
+    lse_err = abs_err(lse, lse_p)
+    blocked = shift <= -sk
+    log(f"kernels[{case}, shift={shift}]: " + " ".join(
+        f"{n}_rel={e:.2e}" for n, e in errs.items())
+        + f" lse_abs={lse_err:.2e}")
+    if blocked:
+        # No row sees a key: o = 0 exactly, lse ~ -1e30, and every
+        # gradient 0 (rel_err against the plain zeros is then 0).
+        check(torch.count_nonzero(o).item() == 0 and
+              lse.max().item() <= -1e29,
+              f"{case}: blocked shift {shift} left o != 0 or lse > -1e29")
+    else:
+        check(lse_err <= LSE_ABS,
+              f"{case} shift {shift}: lse disagrees ({lse_err})")
+    check(errs["fwd_shift"] <= FWD_REL,
+          f"{case} shift {shift}: forward disagrees with its plain version")
+    for n in ("bwd_dq_shift", "bwd_dkdv_shift", "bwd_fused_shift"):
+        check(errs[n] <= BWD_REL, f"{case} shift {shift}: {n} disagrees "
+              f"with its plain version ({errs[n]:.3e})")
+    for n, pairs in outs.items():
+        e = max(abs_err(a, b) for a, b in pairs)
+        if n == "fwd_shift" and not blocked:
+            e = max(e, lse_err)
+        row = rows.setdefault(n, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+    return args
+
+
 def phase_kernels() -> dict:
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import fused_bwd_check
 
     gen = torch.Generator(device="cuda")
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
     rows = {}
-    for case, b, s, sk, h, h_kv, d, causal in CASES:
-        gen.manual_seed(len(rows))
-
-        def rnd(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda",
-                               dtype=torch.bfloat16)
-
+    name, b, s, sk, h, h_kv, d, shift = PARTIAL_SHIFT
+    gen.manual_seed(100)
+    _shift_check(rows, name, rnd(b, s, h, d), rnd(b, sk, h_kv, d),
+                 rnd(b, sk, h_kv, d), rnd(b, s, h, d), shift, gen)
+    for i, (case, b, s, sk, h, h_kv, d, causal) in enumerate(CASES):
+        gen.manual_seed(i)
         q, k, v = rnd(b, s, h, d), rnd(b, sk, h_kv, d), rnd(b, sk, h_kv, d)
         do = rnd(b, s, h, d)
+        shift_args = {sh: _shift_check(rows, case, q, k, v, do, sh, gen)
+                      for sh in (sk, 0, -sk)}
         qh, kh, vh = fa.to_bh(q), fa.to_bh(k), fa.to_bh(v)
         o, lse = fa.flash_fwd(qh, kh, vh, h, h_kv, causal)
         o_p, lse_p = fa.fwd_plain(qh, kh, vh, h, h_kv, causal)
@@ -267,8 +363,35 @@ def phase_kernels() -> dict:
             "bwd_fused": (lambda: fa.flash_bwd_fused(*args),
                           lambda: fa.bwd_plain(*args), sdpa_bwd),
         }
+        # The shift mode at the ring's per-step shape (shift = Sk: a past
+        # block, fully visible). Its yardstick is SDPA non-causal for out
+        # alone: no public PyTorch call returns the lse.
+        sh_args = shift_args[sk]
+        sdpa_nc = torch.nn.functional.scaled_dot_product_attention(
+            sdpa_q, sdpa_k, sdpa_v, is_causal=False)
+
+        def sdpa_nc_bwd():
+            torch.autograd.grad(sdpa_nc, (sdpa_q, sdpa_k, sdpa_v), sdpa_g,
+                                retain_graph=True)
+
+        times.update({
+            "fwd_shift": (
+                lambda: fa.flash_fwd(qh, kh, vh, h, h_kv, False, sk),
+                lambda: fa.fwd_plain(qh, kh, vh, h, h_kv, False, sk),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=False)),
+            "bwd_dq_shift": (lambda: fa.flash_bwd_dq(*sh_args),
+                             lambda: fa.bwd_plain(*sh_args), None),
+            "bwd_dkdv_shift": (lambda: fa.flash_bwd_dkdv(*sh_args),
+                               lambda: fa.bwd_plain(*sh_args), None),
+            "bwd_fused_shift": (lambda: fa.flash_bwd_fused(*sh_args),
+                                lambda: fa.bwd_plain(*sh_args),
+                                sdpa_nc_bwd),
+        })
         for n, (kern, plain, lib) in times.items():
-            bound_ms, bound_by = bounds(n, b, s, sk, h, h_kv, d, causal)
+            shift = sk if n.endswith("_shift") else None
+            bound_ms, bound_by = bounds(n, b, s, sk, h, h_kv, d, causal,
+                                        shift)
             rows[n].update(
                 ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3),
                 library_ms=cuda_ms(lib) if lib is not None else None,
@@ -437,20 +560,251 @@ def phase_split() -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase 5
+
+
+# The sp cell: Llama-2-7B widths cut to 2 layers, one sequence of 4096
+# tokens (Llama-2's max_seq_len), 2048 per rank; SP_STEPS steps, then one
+# at SP_SHORT_SEQ tokens (128 per rank, fewer than 4 q tiles) for the split
+# backward.
+SP_LAYERS = 2
+SP_SEQ = 4096
+SP_STEPS = 3
+SP_SHORT_SEQ = 256
+
+
+def _sp_model(attention_fn):
+    """The sp cell's model, from the same seeded generator in every
+    process that builds it."""
+    from torchft_tpu_torch.models.transformer import (Transformer,
+                                                      llama2_7b_config)
+
+    cfg = llama2_7b_config(num_layers=SP_LAYERS, attention_fn=attention_fn,
+                           remat=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return Transformer(cfg, device="cuda", generator=gen)
+
+
+def _sp_tokens(vocab: int, step: int, seq: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(1000 + step)
+    return torch.randint(0, vocab, (1, seq), generator=gen).cuda()
+
+
+def _sp_attention_inputs(cfg) -> list:
+    """q, k, v and the output cotangent over the whole sequence, seeded:
+    the ranks cut their pieces from these and the static reference reads
+    them whole."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    return [torch.randn(1, SP_SEQ, cfg.num_heads, cfg.head_dim,
+                        generator=gen, device="cuda", dtype=cfg.dtype)
+            for _ in range(4)]
+
+
+def _grad_norm(model) -> float:
+    return float(torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(p.grad.float()) for p in
+        model.parameters()])))
+
+
+def _params_hash(model) -> str:
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _fwd_bwd(attn, q, k, v, g) -> tuple:
+    """(out, dq, dk, dv) of one causal attention forward + backward."""
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    out = attn(qq, kk, vv, True)
+    out.backward(g)
+    return out.detach(), qq.grad, kk.grad, vv.grad
+
+
+def _fwd_bwd_ms(attn, q, k, v, g, iters: int = 5) -> float:
+    """Host-clock ms of one attention forward + backward (synchronized:
+    the ring's hops run on the host)."""
+    _fwd_bwd(attn, q, k, v, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        _fwd_bwd(attn, q, k, v, g)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def sp_worker(rank: int, init: str, report: str) -> int:
+    """One rank of the sp phase (run as ``chip_smoke.py --sp-worker``)."""
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.ring_attention import (
+        _hop, make_ring_attention)
+    from torchft_tpu_torch.parallel.step import SPTrainer
+
+    dist.init_process_group("gloo", init_method=init, world_size=2,
+                            rank=rank)
+    ring = make_ring_attention()
+    model = _sp_model(ring)
+    cfg = model.cfg
+    trainer = SPTrainer(model, torch.optim.AdamW(
+        model.parameters(), lr=3e-4, weight_decay=1e-4, eps=1e-8))
+    out = {"rank": rank, "losses": [], "hashes": [], "timings": []}
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    for step in range(SP_STEPS):
+        loss = trainer.train_step(_sp_tokens(cfg.vocab_size, step, SP_SEQ))
+        out["losses"].append(float(loss))
+        out["timings"].append(trainer.last_step_timings)
+        if step == 0:
+            out["grad_norm_1"] = _grad_norm(model)
+        out["hashes"].append(_params_hash(model))
+    out["launches"] = dict(fa.LAUNCHES)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    # The split backward's shift mode: fewer than 4 q tiles per rank.
+    fa.reset_launches()
+    trainer.train_step(_sp_tokens(cfg.vocab_size, SP_STEPS, SP_SHORT_SEQ))
+    out["split_launches"] = dict(fa.LAUNCHES)
+    # The ring-attention layer alone on this rank's piece of one seeded
+    # sequence, against the static kernels on the whole of it.
+    full = _sp_attention_inputs(cfg)
+    piece = slice(rank * SP_SEQ // 2, (rank + 1) * SP_SEQ // 2)
+    q, k, v, g = (x[:, piece].contiguous() for x in full)
+    ring_res = _fwd_bwd(ring, q, k, v, g)
+    ref = _fwd_bwd(fa.flash_attention, *full)
+    out["attn_rel"] = {n: rel_err(a, b[:, piece]) for n, a, b in
+                       zip(("out", "dq", "dk", "dv"), ring_res, ref)}
+    del full, ref, ring_res
+    out["ring_ms"] = _fwd_bwd_ms(ring, q, k, v, g)
+    # One K/V hop of that layer (the forward makes one, the backward one).
+    t0 = time.perf_counter()
+    for _ in range(5):
+        _hop(dist.group.WORLD, (k, v), 1)
+    torch.cuda.synchronize()
+    out["hop_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    with open(report, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sp(procs: list) -> dict:
+    """The sequence-parallel path (see the module docstring). Returns the
+    shift-mode launch counts summed over the ranks."""
+    from torchft_tpu_torch.models.transformer import chunked_causal_lm_loss
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    ranks = []
+    for rank in range(2):
+        log_path = os.path.join(workdir, f"sp_rank_{rank}.log")
+        ranks.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sp-worker",
+             str(rank), "--sp-init", init, "--sp-report",
+             os.path.join(workdir, f"sp_{rank}.json")],
+            cwd=ROOT, stdout=open(log_path, "w"), stderr=subprocess.STDOUT,
+            start_new_session=True))
+    procs += ranks
+    try:
+        for rank, proc in enumerate(ranks):
+            _wait(proc, 600, f"sp rank {rank}")
+    finally:
+        for name in os.listdir(workdir):
+            if name.endswith(".log"):
+                shutil.copy(os.path.join(workdir, name), OUT_DIR)
+    reps = []
+    for rank in range(2):
+        with open(os.path.join(workdir, f"sp_{rank}.json")) as f:
+            reps.append(json.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"sp: both ranks done in {time.perf_counter() - t0:.1f} s")
+    for r in reps:
+        log(f"sp: rank {r['rank']} losses={r['losses']} "
+            f"grad_norm_1={r['grad_norm_1']} peak_gb={r['peak_gb']} "
+            f"ring_ms={r['ring_ms']:.3f} hop_ms={r['hop_ms']:.3f} "
+            f"launches={r['launches']} "
+            f"split_launches={r['split_launches']}")
+        for i, t in enumerate(r["timings"]):
+            log(f"sp: rank {r['rank']} step {i + 1} " + " ".join(
+                f"{k}_s={v:.4f}" for k, v in t.items()))
+        log(f"sp: rank {r['rank']} ring vs static flash_attention at "
+            f"S={SP_SEQ}: " + " ".join(
+                f"{n}_rel={e:.2e}" for n, e in r["attn_rel"].items()))
+
+    # Step 1 against one process on the whole sequence, static kernels.
+    model = _sp_model(fa.flash_attention)
+    tokens = _sp_tokens(model.cfg.vocab_size, 0, SP_SEQ)
+    loss = chunked_causal_lm_loss(model(tokens, return_hidden=True),
+                                  model.lm_head_kernel(), tokens)
+    loss.backward()
+    ref_loss, ref_norm = float(loss.detach()), _grad_norm(model)
+    cfg = model.cfg
+    del model, loss
+    r0, r1 = reps
+    loss_rel = abs(r0["losses"][0] - ref_loss) / abs(ref_loss)
+    norm_rel = abs(r0["grad_norm_1"] - ref_norm) / ref_norm
+    log(f"sp: step 1 vs one process: loss {r0['losses'][0]:.6f} vs "
+        f"{ref_loss:.6f} (rel {loss_rel:.2e}), grad norm "
+        f"{r0['grad_norm_1']:.6f} vs {ref_norm:.6f} (rel {norm_rel:.2e})")
+    # The ring-attention layer against the static kernels at the whole
+    # sequence (same heads and widths).
+    static_ms = _fwd_bwd_ms(fa.flash_attention, *_sp_attention_inputs(cfg))
+    log(f"sp: attention fwd+bwd, ring over 2 ranks at S_local="
+        f"{SP_SEQ // 2}: {r0['ring_ms']:.3f} / {r1['ring_ms']:.3f} ms; "
+        f"static flash_attention at S={SP_SEQ}: {static_ms:.3f} ms")
+
+    # Every reading is logged above; now the checks.
+    for i, (h0, h1) in enumerate(zip(r0["hashes"], r1["hashes"])):
+        check(h0 == h1, f"sp: ranks' parameters differ after step {i + 1}")
+    check(len(r0["hashes"]) == SP_STEPS, "sp: steps missing")
+    for r in reps:
+        check(all(x == x and abs(x) != float("inf") for x in r["losses"]),
+              f"sp rank {r['rank']}: non-finite loss")
+        check(r["launches"]["fwd_shift"] > 0
+              and r["launches"]["bwd_fused_shift"] > 0,
+              f"sp rank {r['rank']}: shift-mode kernels not launched")
+        check(r["split_launches"]["bwd_dq_shift"] > 0
+              and r["split_launches"]["bwd_dkdv_shift"] > 0,
+              f"sp rank {r['rank']}: split shift-mode kernels not launched")
+        for n, e in r["attn_rel"].items():
+            check(e <= (FWD_REL if n == "out" else BWD_REL),
+                  f"sp rank {r['rank']}: ring attention's {n} disagrees "
+                  f"with static flash_attention ({e:.3e})")
+    check(loss_rel <= SP_LOSS_REL, "sp: step 1 loss disagrees with the "
+          "one-process static-kernel run")
+    check(norm_rel <= SP_GRAD_NORM_REL, "sp: step 1 gradient norm "
+          "disagrees with the one-process static-kernel run")
+    launches = {n: r0["launches"][n] + r1["launches"][n]
+                for n in ("fwd_shift", "bwd_fused_shift")}
+    for n in ("bwd_dq_shift", "bwd_dkdv_shift"):
+        launches[n] = (r0["split_launches"][n] + r1["split_launches"][n])
+    return {"launches": launches, "reports": reps, "static_ms": static_ms}
+
+
 # ------------------------------------------------------------------ main
 
 
 def main(argv: list) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="card,kernels,ft,split")
+    ap.add_argument("--phases", default="card,kernels,ft,split,sp")
+    # A rank of the sp phase's group (started by the phase itself).
+    ap.add_argument("--sp-worker", type=int, default=None)
+    ap.add_argument("--sp-init")
+    ap.add_argument("--sp-report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
     # Full-precision float32 matmuls: the plain versions are references.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.sp_worker is not None:
+        return sp_worker(args.sp_worker, args.sp_init, args.sp_report)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
     procs: list = []
@@ -466,6 +820,8 @@ def main(argv: list) -> int:
             split = phase_split()
             launches["bwd_dq"] = split["bwd_dq"]
             launches["bwd_dkdv"] = split["bwd_dkdv"]
+        if "sp" in phases:
+            launches.update(phase_sp(procs)["launches"])
     finally:
         for p in procs:
             if p.poll() is None:

@@ -6,6 +6,7 @@ package)."""
 
 from __future__ import annotations
 
+import os
 import subprocess
 import sys
 import threading
@@ -116,16 +117,20 @@ def test_two_groups_leave_rejoin_heal_bitwise():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, import no JAX."""
     code = (
-        "import sys\n"
-        "import torchft_tpu_torch, torchft_tpu_torch.train_lm\n"
-        "import torchft_tpu_torch.ops.flash_attention\n"
-        "import torchft_tpu_torch.ops.fused_bwd_check\n"
+        "import importlib, pkgutil, sys\n"
+        "import torchft_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(torchft_tpu_torch.__path__,\n"
+        "                               'torchft_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'torchft_tpu_torch.parallel.ring_attention' in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'torchft_tpu')]\n"
         "assert not bad, bad\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True)
+                          text=True, cwd=root)
     assert proc.returncode == 0, proc.stderr
 
 
@@ -135,7 +140,6 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
     without a GPU, and in a directory holding nothing else of the repo."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
-    import os
     import shutil
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

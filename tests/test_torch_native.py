@@ -24,13 +24,23 @@ JAX_CORE = os.path.join(ROOT, "torchft_tpu", "_core")
 PORT_CORE = os.path.join(ROOT, "torchft_tpu_torch", "_core")
 SOURCES = ["capi.cc", "lighthouse.cc", "lighthouse.h", "manager.cc",
            "manager.h", "rpc.cc", "rpc.h", "store.cc", "store.h",
-           "CMakeLists.txt", os.path.join("proto", "torchft.proto")]
+           os.path.join("proto", "torchft.proto")]
 
 
 @pytest.mark.parametrize("name", SOURCES)
 def test_core_sources_are_byte_identical(name):
     assert filecmp.cmp(os.path.join(JAX_CORE, name),
                        os.path.join(PORT_CORE, name), shallow=False)
+
+
+def test_core_copy_has_no_cmake_build():
+    """The port builds its core with g++ (``_native.py``), never cmake: the
+    JAX core's CMakeLists.txt, which names its C++ test binary and
+    libprotobuf, is not copied."""
+    assert not os.path.exists(os.path.join(PORT_CORE, "CMakeLists.txt"))
+    assert os.path.exists(os.path.join(JAX_CORE, "CMakeLists.txt"))
+    with open(_native.__file__) as f:
+        assert "cmake" not in f.read().lower()
 
 
 def test_core_copy_is_complete():

@@ -11,6 +11,16 @@
 //     no repeated K/V;
 //   * end-aligned causal mask: query i sits at key position (Sk - S) + i and
 //     sees keys k <= that position;
+//   * the ring's shift mask (dynamic_shift in the TPU kernels): with causal
+//     set, an int shift slides that diagonal, query i seeing keys
+//     k <= (Sk - S) + i + shift. shift = 0 is the causal mask, shift >= Sk
+//     shows every key, shift <= -Sk blocks every key. Every mask is one
+//     int the kernels read, the diagonal's offset: Sk - S + shift, or
+//     UNMASKED without causal; so one kernel serves all three modes;
+//   * a masked entry has p = 0 by a select, never by exp(NEG_INF - m): a
+//     row that sees no key gets o = 0, lse = NEG_INF + log(1e-30) and zero
+//     gradients whatever the tiles (the TPU kernels give such a row, where
+//     it shares a tile with visible entries, a tile-dependent value);
 //   * bf16 matmul inputs, f32 softmax statistics and accumulators;
 //   * block-level mask bounds: tiles with no visible entry are skipped by
 //     the loop bound, only tiles next to the diagonal (or at a ragged edge)
@@ -51,6 +61,9 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr int LDP = BK + 8;     // row stride of bf16 [*, BK] tiles
 constexpr int LDS = BK + 4;     // row stride of f32 [16, BK] score tiles
 constexpr float NEG_INF = -1e30f;  // finite, like the TPU kernel's
+// Diagonal offset of "no mask": q + UNMASKED >= k for every key k < 2^30,
+// and q + UNMASKED + BQ stays below 2^31 for q < 2^30 - BQ.
+constexpr int UNMASKED = 1 << 30;
 
 template <int D> struct Geo {
   static constexpr int LDH = D + 8;   // row stride of bf16 [*, D] tiles
@@ -111,17 +124,25 @@ __device__ __forceinline__ void warp_abt(const bf16* a, const bf16* b,
 }
 
 // Visibility of tile entry (query row qr of tile qi, key column kc of
-// tile kj): in range, and on or left of the end-aligned diagonal.
+// tile kj): in range, and on or left of the diagonal k = q + offset.
 struct Mask {
   int S, Sk, offset;
-  bool causal;
   __device__ __forceinline__ bool visible(int q, int k) const {
-    return q < S && k < Sk && (!causal || q + offset >= k);
+    return q < S && k < Sk && q + offset >= k;
   }
   // Every entry of the (qi, kj) tile visible: no element mask needed.
   __device__ __forceinline__ bool full(int q0, int k0) const {
     if (q0 + BQ > S || k0 + BK > Sk) return false;
-    return !causal || q0 + offset >= k0 + BK - 1;
+    return q0 + offset >= k0 + BK - 1;
+  }
+  // Key tiles that the rows of the q tile at q0 see: [0, return). A tile
+  // whose rows see no key (last < 0) runs none; C division truncates
+  // toward zero, so -BK < last < 0 would otherwise give 1.
+  __device__ __forceinline__ int key_tiles(int q0) const {
+    const int last = q0 + BQ - 1 + offset;  // last key any row here sees
+    const int lim = last < 0 ? 0 : last / BK + 1;
+    const int nkb = (Sk + BK - 1) / BK;
+    return lim < nkb ? lim : nkb;
   }
 };
 
@@ -137,7 +158,7 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int H, int Hkv, int S, int Sk,
-                 int causal, float scale) {
+                 int offset, float scale) {
   using G = Geo<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -152,7 +173,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int qi = blockIdx.x, bh = blockIdx.y;
   const int q0 = qi * BQ;
-  const Mask mask{S, Sk, Sk - S, causal != 0};
+  const Mask mask{S, Sk, offset};
   const bf16* qb = q + (size_t)bh * S * D;
   const int kvr = kv_row(bh, H, Hkv);
   const bf16* kb = k + (size_t)kvr * Sk * D;
@@ -166,12 +187,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qrow = q0 + warp * 16 + row;
   float m = NEG_INF, l = 0.0f;
 
-  int nkb = (Sk + BK - 1) / BK;
-  if (mask.causal) {
-    int last = q0 + BQ - 1 + mask.offset;  // last key any row here sees
-    int lim = last / BK + 1;
-    nkb = lim < nkb ? lim : nkb;
-  }
+  const int nkb = mask.key_tiles(q0);
   for (int kj = 0; kj < nkb; ++kj) {
     const int k0 = kj * BK;
     __syncthreads();
@@ -198,7 +214,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float tsum = 0.0f;
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
-      float p = expf(s[c] - m_new);
+      const bool vis = full || mask.visible(qrow, k0 + half * 32 + c);
+      float p = vis ? expf(s[c] - m_new) : 0.0f;
       tsum += p;
       sP[row * LDP + half * 32 + c] = __float2bfloat16(p);
     }
@@ -306,7 +323,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    int H, int Hkv, int S, int Sk, int causal, float scale) {
+                    int H, int Hkv, int S, int Sk, int offset, float scale) {
   using G = Geo<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -324,7 +341,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int qi = blockIdx.x, bh = blockIdx.y;
   const int q0 = qi * BQ;
-  const Mask mask{S, Sk, Sk - S, causal != 0};
+  const Mask mask{S, Sk, offset};
   const int kvr = kv_row(bh, H, Hkv);
   const bf16* kb = k + (size_t)kvr * Sk * D;
   const bf16* vb = v + (size_t)kvr * Sk * D;
@@ -341,11 +358,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
 
-  int nkb = (Sk + BK - 1) / BK;
-  if (mask.causal) {
-    int lim = (q0 + BQ - 1 + mask.offset) / BK + 1;
-    nkb = lim < nkb ? lim : nkb;
-  }
+  const int nkb = mask.key_tiles(q0);
   bf16* sdSw = sdS + warp * 16 * LDP;
   for (int kj = 0; kj < nkb; ++kj) {
     const int k0 = kj * BK;
@@ -393,7 +406,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, float* __restrict__ dq,
-                    int H, int Hkv, int S, int Sk, int causal, float scale) {
+                    int H, int Hkv, int S, int Sk, int offset, float scale) {
   using G = Geo<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -412,7 +425,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int kj = blockIdx.x, bh = blockIdx.y;
   const int k0 = kj * BK;
-  const Mask mask{S, Sk, Sk - S, causal != 0};
+  const Mask mask{S, Sk, offset};
   const int kvr = kv_row(bh, H, Hkv);
   load_tile<D>(sK, k + (size_t)kvr * Sk * D, k0, Sk);
   load_tile<D>(sV, v + (size_t)kvr * Sk * D, k0, Sk);
@@ -426,12 +439,10 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const int nqb = (S + BQ - 1) / BQ;
-  int qi_start = 0;
-  if (mask.causal) {
-    // First q tile whose last row reaches this tile's first key.
-    const int need = k0 - mask.offset - (BQ - 1);
-    qi_start = need > 0 ? (need + BQ - 1) / BQ : 0;
-  }
+  // First q tile whose last row reaches this tile's first key; at or past
+  // nqb when no row does (a blocking shift): dk/dv stay zero.
+  const int need = k0 - mask.offset - (BQ - 1);
+  const int qi_start = need > 0 ? (need + BQ - 1) / BQ : 0;
   const bf16* qb = q + (size_t)bh * S * D;
   const bf16* dob = dout + (size_t)bh * S * D;
   for (int qi = qi_start; qi < nqb; ++qi) {
@@ -502,6 +513,12 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 1.0f);
 }
 
+// The kernels' mask: the diagonal offset of the end-aligned causal mask
+// slid by shift, or UNMASKED.
+int mask_offset(int S, int Sk, int causal, int shift) {
+  return causal ? Sk - S + shift : UNMASKED;
+}
+
 template <typename K>
 cudaError_t prepare(K kernel, int smem) {
   return cudaFuncSetAttribute(kernel,
@@ -512,14 +529,14 @@ cudaError_t prepare(K kernel, int smem) {
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int BH, int H, int Hkv, int S, int Sk,
-                       int causal, float scale, cudaStream_t st) {
+                       int causal, int shift, float scale, cudaStream_t st) {
   constexpr int smem = Geo<D>::FWD_SMEM;
   cudaError_t e = prepare(flash_fwd_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((S + BQ - 1) / BQ, BH);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      H, Hkv, S, Sk, causal, scale);
+      H, Hkv, S, Sk, mask_offset(S, Sk, causal, shift), scale);
   return cudaGetLastError();
 }
 
@@ -527,7 +544,7 @@ template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int BH, int H, int Hkv, int S, int Sk,
-                      int causal, float scale, cudaStream_t st) {
+                      int causal, int shift, float scale, cudaStream_t st) {
   constexpr int smem = Geo<D>::BWD_SMEM;
   cudaError_t e = prepare(flash_bwd_dq_kernel<D>, smem);
   if (e != cudaSuccess) return e;
@@ -535,7 +552,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (float*)dq, H, Hkv, S, Sk,
-      causal, scale);
+      mask_offset(S, Sk, causal, shift), scale);
   return cudaGetLastError();
 }
 
@@ -543,7 +560,7 @@ template <int D, bool FUSED>
 cudaError_t launch_kv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, void* dq, int BH, int H, int Hkv,
-                      int S, int Sk, int causal, float scale,
+                      int S, int Sk, int causal, int shift, float scale,
                       cudaStream_t st) {
   constexpr int smem = Geo<D>::BWD_SMEM;
   cudaError_t e = prepare(flash_bwd_kv_kernel<D, FUSED>, smem);
@@ -552,7 +569,7 @@ cudaError_t launch_kv(const void* q, const void* k, const void* v,
   flash_bwd_kv_kernel<D, FUSED><<<grid, NTHREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
-      (float*)dq, H, Hkv, S, Sk, causal, scale);
+      (float*)dq, H, Hkv, S, Sk, mask_offset(S, Sk, causal, shift), scale);
   return cudaGetLastError();
 }
 
@@ -571,38 +588,40 @@ extern "C" {
 
 int tft_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int BH, int H, int Hkv, int S, int Sk, int D,
-                  int causal, float scale, void* stream) {
+                  int causal, int shift, float scale, void* stream) {
   TFT_DISPATCH_D(D, (int)launch_fwd<DD>(q, k, v, o, lse, BH, H, Hkv, S, Sk,
-                                        causal, scale,
+                                        causal, shift, scale,
                                         (cudaStream_t)stream))
 }
 
 int tft_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int BH, int H, int Hkv, int S, int Sk, int D,
-                     int causal, float scale, void* stream) {
+                     int causal, int shift, float scale, void* stream) {
   TFT_DISPATCH_D(D, (int)launch_dq<DD>(q, k, v, dout, lse, delta, dq, BH, H,
-                                       Hkv, S, Sk, causal, scale,
+                                       Hkv, S, Sk, causal, shift, scale,
                                        (cudaStream_t)stream))
 }
 
 int tft_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int BH, int H, int Hkv, int S,
-                       int Sk, int D, int causal, float scale, void* stream) {
+                       int Sk, int D, int causal, int shift, float scale,
+                       void* stream) {
   TFT_DISPATCH_D(D, (int)(launch_kv<DD, false>(
                         q, k, v, dout, lse, delta, dk, dv, nullptr, BH, H,
-                        Hkv, S, Sk, causal, scale, (cudaStream_t)stream)))
+                        Hkv, S, Sk, causal, shift, scale,
+                        (cudaStream_t)stream)))
 }
 
 int tft_flash_bwd_fused(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dk, void* dv, void* dq, int BH, int H, int Hkv,
-                        int S, int Sk, int D, int causal, float scale,
-                        void* stream) {
+                        int S, int Sk, int D, int causal, int shift,
+                        float scale, void* stream) {
   TFT_DISPATCH_D(D, (int)(launch_kv<DD, true>(
                         q, k, v, dout, lse, delta, dk, dv, dq, BH, H, Hkv, S,
-                        Sk, causal, scale, (cudaStream_t)stream)))
+                        Sk, causal, shift, scale, (cudaStream_t)stream)))
 }
 
 const char* tft_error_string(int code) {

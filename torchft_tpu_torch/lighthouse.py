@@ -4,7 +4,7 @@ The reference ships a ``torchft_lighthouse`` console binary
 (src/bin/lighthouse.rs, wired via pyproject
 ``[project.scripts]``). Same surface here:
 
-    python -m torchft_tpu.lighthouse --bind 0.0.0.0:29510 \
+    python -m torchft_tpu_torch.lighthouse --bind 0.0.0.0:29510 \
         --min-replicas 2 --join-timeout-ms 60000 --quorum-tick-ms 100
 
 Serves the quorum RPC and the HTML dashboard (quorum age, per-member step

@@ -230,16 +230,19 @@ class Transformer(nn.Module):
     def lm_head_kernel(self) -> torch.Tensor:
         return self.lm_head
 
-    def forward(self, tokens: torch.Tensor,
-                return_hidden: bool = False) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``return_hidden=True`` skips the LM head and returns the
         final-norm hidden states [B, S, E]: pair it with
         :func:`chunked_causal_lm_loss` so [B, S, vocab] logits never
-        materialize."""
+        materialize. ``positions`` ([B, S], default ``arange(S)``) are the
+        tokens' rotary positions: a sequence shard passes its global ones
+        (:func:`~torchft_tpu_torch.parallel.sharding.shard_sequence`)."""
         cfg = self.cfg
         x = F.embedding(tokens, self.embed.to(cfg.dtype))
-        positions = torch.arange(tokens.shape[1], device=tokens.device
-                                 ).expand(tokens.shape)
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device
+                                     ).expand(tokens.shape)
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, positions, use_reentrant=False)
@@ -281,26 +284,35 @@ def _chunk_nll(h: torch.Tensor, kernel: torch.Tensor, t: torch.Tensor,
     return -logp.gather(-1, t[..., None]).sum()
 
 
+def chunked_nll_sum(hidden: torch.Tensor, head_kernel: torch.Tensor,
+                    targets: torch.Tensor, chunk_size: int = 256,
+                    matmul_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
+    """Sum over positions of -log p(targets | hidden), hidden [B, T, E]
+    and targets [B, T], WITHOUT materializing [B, T, vocab]: the head
+    matmul and log-softmax run per sequence chunk under
+    ``torch.utils.checkpoint``, so both passes peak at one [B, chunk, V]
+    tile. ``matmul_dtype=None`` keeps the head matmul in float32; the
+    log-softmax always runs on float32 logits."""
+    t = targets.long()
+    mm = torch.float32 if matmul_dtype is None else matmul_dtype
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, t.shape[1], chunk_size):
+        total = total + checkpoint(
+            _chunk_nll, hidden[:, start:start + chunk_size], head_kernel,
+            t[:, start:start + chunk_size], mm, use_reentrant=False)
+    return total
+
+
 def chunked_causal_lm_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
                            tokens: torch.Tensor, chunk_size: int = 256,
                            matmul_dtype: Optional[torch.dtype] = None
                            ) -> torch.Tensor:
-    """Next-token cross-entropy, mean over positions, WITHOUT materializing
-    [B, S, vocab]: the head matmul and log-softmax run per sequence chunk
-    under ``torch.utils.checkpoint``, so both passes peak at one
-    [B, chunk, V] tile. ``matmul_dtype=None`` keeps the head matmul in
-    float32; the log-softmax always runs on float32 logits."""
+    """Next-token cross-entropy, mean over positions, through
+    :func:`chunked_nll_sum`."""
     b, s, _ = hidden.shape
-    h = hidden[:, :-1]
-    t = tokens[:, 1:].long()
-    s1 = s - 1
-    mm = torch.float32 if matmul_dtype is None else matmul_dtype
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for start in range(0, s1, chunk_size):
-        total = total + checkpoint(
-            _chunk_nll, h[:, start:start + chunk_size], head_kernel,
-            t[:, start:start + chunk_size], mm, use_reentrant=False)
-    return total / (b * s1)
+    return chunked_nll_sum(hidden[:, :-1], head_kernel, tokens[:, 1:],
+                           chunk_size, matmul_dtype) / (b * (s - 1))
 
 
 # --------------------------------------------------------- flax weights

@@ -22,11 +22,21 @@ kernel's plain PyTorch version instead (that is how the CPU tests run the
 module). There is no fallback: a CUDA tensor the kernel cannot take, or a
 kernel library that does not build, raises.
 
+Each wrapper also takes ``shift``, a host int: the TPU kernels'
+``dynamic_shift`` mode, which ring attention runs. Given, it replaces the
+causal flag with the mask ``k <= (Sk - S) + i + shift`` for query row i
+(0 = causal, >= Sk = full, <= -Sk = blocked), and the launch is counted
+under the ``*_shift`` key. A masked entry has p = 0 exactly, in the kernels
+and the plain versions alike, so a row that sees no key gets o = 0,
+lse = NEG_INF + log(1e-30) and zero gradients.
+
 :func:`flash_attention` is the autograd entry point with the JAX function's
 contract: ``[B, S, H, D]`` layout, GQA by index, end-aligned causal mask,
 zero-padding of odd causal lengths, ``ValueError`` for non-causal unaligned
 lengths, and the fused/split backward choice with the
-``TORCHFT_FLASH_FUSED_BWD=0`` kill-switch.
+``TORCHFT_FLASH_FUSED_BWD=0`` kill-switch. :func:`flash_attention_block`
+is the ring's entry point (JAX :777-811): one pass with a shift mask,
+returning ``(out, lse)``, differentiable through both.
 """
 
 from __future__ import annotations
@@ -46,14 +56,19 @@ BLOCK_K = 64
 HEAD_DIMS = (32, 64, 128)
 
 # Launches per kernel since the last reset_launches(); bumped only where a
-# wrapper launches its kernel.
-LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd_dq": 0, "bwd_dkdv": 0,
-                            "bwd_fused": 0}
+# wrapper launches its kernel. Shift-mode launches count under "<name>_shift".
+LAUNCHES: Dict[str, int] = {f"{n}{sfx}": 0 for sfx in ("", "_shift")
+                            for n in ("fwd", "bwd_dq", "bwd_dkdv",
+                                      "bwd_fused")}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _count(name: str, shift: Optional[int]) -> None:
+    LAUNCHES[name if shift is None else f"{name}_shift"] += 1
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -69,7 +84,8 @@ def _lib() -> ctypes.CDLL:
 
             lib = load_cuda("flash_attention.cu")
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            dims = [i32] * 6 + [i32, f32, vp]  # BH H Hkv S Sk D causal ...
+            # BH H Hkv S Sk D causal shift scale stream
+            dims = [i32] * 6 + [i32, i32, f32, vp]
             lib.tft_flash_fwd.argtypes = [vp] * 5 + dims
             lib.tft_flash_bwd_dq.argtypes = [vp] * 7 + dims
             lib.tft_flash_bwd_dkdv.argtypes = [vp] * 8 + dims
@@ -150,41 +166,63 @@ def _kv_index(bh: int, h: int, h_kv: int, device: torch.device
     return (rows // h) * h_kv + (rows % h) // (h // h_kv)
 
 
-def _scores(qh: torch.Tensor, kx: torch.Tensor, causal: bool
-            ) -> torch.Tensor:
+def _visible(s: int, sk: int, causal: bool, shift: Optional[int],
+             device: torch.device) -> Optional[torch.Tensor]:
+    """The kernels' ``[S, Sk]`` mask: key k visible to query i when
+    ``k <= (Sk - S) + i + shift`` (shift 0 when only ``causal``); None
+    when every entry is visible."""
+    if shift is None and not causal:
+        return None
+    return torch.ones(s, sk, dtype=torch.bool, device=device).tril(
+        diagonal=sk - s + (shift or 0))
+
+
+def _scores(qh: torch.Tensor, kx: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Scaled, masked f32 logits ``[BH, S, Sk]``."""
-    s, sk, d = qh.shape[1], kx.shape[1], qh.shape[2]
-    logits = torch.matmul(qh.float(), kx.transpose(1, 2)) * d ** -0.5
-    if causal:
-        mask = torch.ones(s, sk, dtype=torch.bool,
-                          device=qh.device).tril(diagonal=sk - s)
+    scale = qh.shape[2] ** -0.5
+    logits = torch.matmul(qh.float(), kx.transpose(1, 2)) * scale
+    if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     return logits
 
 
-def fwd_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
-              h: int, h_kv: int, causal: bool
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the forward kernel, f32 math: ``(o, lse)``."""
-    bh = _dims(qh, kh, h, h_kv)[0]
-    idx = _kv_index(bh, h, h_kv, qh.device)
-    logits = _scores(qh, kh.float()[idx], causal)
-    lse = torch.logsumexp(logits, dim=-1)
+def _probs(logits: torch.Tensor, lse: torch.Tensor,
+           mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """p = exp(logits - lse), and exactly 0 where masked (as the kernels
+    select it)."""
     p = torch.exp(logits - lse[..., None])
-    return torch.matmul(p, vh.float()[idx]).to(qh.dtype), lse
+    return p if mask is None else p.masked_fill(~mask, 0.0)
+
+
+def fwd_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+              h: int, h_kv: int, causal: bool, shift: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel, f32 math: ``(o, lse)`` with
+    the kernel's lse = m + log(max(l, 1e-30))."""
+    bh, s, sk, _ = _dims(qh, kh, h, h_kv)
+    idx = _kv_index(bh, h, h_kv, qh.device)
+    mask = _visible(s, sk, causal, shift, qh.device)
+    logits = _scores(qh, kh.float()[idx], mask)
+    m = logits.amax(dim=-1)
+    e = _probs(logits, m, mask)
+    l = e.sum(dim=-1).clamp_min(1e-30)
+    p = e / l[..., None]
+    return torch.matmul(p, vh.float()[idx]).to(qh.dtype), m + torch.log(l)
 
 
 def bwd_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
               doh: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-              h: int, h_kv: int, causal: bool
+              h: int, h_kv: int, causal: bool, shift: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernels, f32 math: ``(dq, dk, dv)``
     with dk/dv per QUERY head (``[B*H, Sk, D]``), from the same residuals
     the kernels read: p = exp(logits - lse), ds = p * (dp - delta)."""
-    bh, _, _, d = _dims(qh, kh, h, h_kv)
+    bh, s, sk, d = _dims(qh, kh, h, h_kv)
     idx = _kv_index(bh, h, h_kv, qh.device)
     kx, vx = kh.float()[idx], vh.float()[idx]
-    p = torch.exp(_scores(qh, kx, causal) - lse[..., None])
+    mask = _visible(s, sk, causal, shift, qh.device)
+    p = _probs(_scores(qh, kx, mask), lse, mask)
     do = doh.float()
     ds = p * (torch.matmul(do, vx.transpose(1, 2)) - delta[..., None])
     scale = d ** -0.5
@@ -197,51 +235,63 @@ def bwd_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
 # ------------------------------------------------------------ wrappers
 
 
+def _mask_args(causal: bool, shift: Optional[int]) -> Tuple[int, int]:
+    """The kernels' (causal, shift) ints: shift mode is the causal mask
+    slid by ``shift``."""
+    if shift is None:
+        return int(causal), 0
+    return 1, int(shift)
+
+
 def flash_fwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
-              h: int, h_kv: int, causal: bool
+              h: int, h_kv: int, causal: bool, shift: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel: ``(o [B*H, S, D], lse [B*H, S] f32)``."""
     if _on_cpu(qh, kh, vh):
-        return fwd_plain(qh, kh, vh, h, h_kv, causal)
+        return fwd_plain(qh, kh, vh, h, h_kv, causal, shift)
     bh, s, sk, d = _dims(qh, kh, h, h_kv)
     _check_kernel_inputs((qh, kh, vh), (), d)
     o = torch.empty_like(qh)
     lse = torch.empty(bh, s, dtype=torch.float32, device=qh.device)
     rc = _lib().tft_flash_fwd(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, h, h_kv, s, sk, d, int(causal), d ** -0.5,
-        _stream(qh))
+        lse.data_ptr(), bh, h, h_kv, s, sk, d, *_mask_args(causal, shift),
+        d ** -0.5, _stream(qh))
     _raise_if(rc, "fwd")
-    LAUNCHES["fwd"] += 1
+    _count("fwd", shift)
     return o, lse
 
 
 def flash_bwd_dq(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                  doh: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                 h: int, h_kv: int, causal: bool) -> torch.Tensor:
+                 h: int, h_kv: int, causal: bool,
+                 shift: Optional[int] = None) -> torch.Tensor:
     """Split-backward dq kernel: ``dq [B*H, S, D]`` in f32."""
     if _on_cpu(qh, kh, vh, doh, lse, delta):
-        return bwd_plain(qh, kh, vh, doh, lse, delta, h, h_kv, causal)[0]
+        return bwd_plain(qh, kh, vh, doh, lse, delta, h, h_kv, causal,
+                         shift)[0]
     bh, s, sk, d = _dims(qh, kh, h, h_kv)
     _check_kernel_inputs((qh, kh, vh, doh), (lse, delta), d)
     dq = torch.empty(bh, s, d, dtype=torch.float32, device=qh.device)
     rc = _lib().tft_flash_bwd_dq(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), doh.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, h, h_kv, s, sk,
-        d, int(causal), d ** -0.5, _stream(qh))
+        d, *_mask_args(causal, shift), d ** -0.5, _stream(qh))
     _raise_if(rc, "bwd_dq")
-    LAUNCHES["bwd_dq"] += 1
+    _count("bwd_dq", shift)
     return dq
 
 
 def flash_bwd_dkdv(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                    doh: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                   h: int, h_kv: int, causal: bool
+                   h: int, h_kv: int, causal: bool,
+                   shift: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split-backward dk/dv kernel: per-query-head ``dk, dv
     [B*H, Sk, D]`` in the input dtype."""
     if _on_cpu(qh, kh, vh, doh, lse, delta):
-        _, dk, dv = bwd_plain(qh, kh, vh, doh, lse, delta, h, h_kv, causal)
+        _, dk, dv = bwd_plain(qh, kh, vh, doh, lse, delta, h, h_kv, causal,
+                              shift)
         return dk.to(kh.dtype), dv.to(vh.dtype)
     bh, s, sk, d = _dims(qh, kh, h, h_kv)
     _check_kernel_inputs((qh, kh, vh, doh), (lse, delta), d)
@@ -250,20 +300,23 @@ def flash_bwd_dkdv(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     rc = _lib().tft_flash_bwd_dkdv(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), doh.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-        h, h_kv, s, sk, d, int(causal), d ** -0.5, _stream(qh))
+        h, h_kv, s, sk, d, *_mask_args(causal, shift), d ** -0.5,
+        _stream(qh))
     _raise_if(rc, "bwd_dkdv")
-    LAUNCHES["bwd_dkdv"] += 1
+    _count("bwd_dkdv", shift)
     return dk, dv
 
 
 def flash_bwd_fused(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                     doh: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                    h: int, h_kv: int, causal: bool
+                    h: int, h_kv: int, causal: bool,
+                    shift: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused-backward kernel: per-query-head ``dk, dv [B*H, Sk, D]`` in
     the input dtype and ``dq [B*H, S, D]`` in f32."""
     if _on_cpu(qh, kh, vh, doh, lse, delta):
-        dq, dk, dv = bwd_plain(qh, kh, vh, doh, lse, delta, h, h_kv, causal)
+        dq, dk, dv = bwd_plain(qh, kh, vh, doh, lse, delta, h, h_kv, causal,
+                               shift)
         return dk.to(kh.dtype), dv.to(vh.dtype), dq
     bh, s, sk, d = _dims(qh, kh, h, h_kv)
     _check_kernel_inputs((qh, kh, vh, doh), (lse, delta), d)
@@ -273,10 +326,10 @@ def flash_bwd_fused(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     rc = _lib().tft_flash_bwd_fused(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), doh.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dq.data_ptr(), bh, h, h_kv, s, sk, d, int(causal), d ** -0.5,
-        _stream(qh))
+        dq.data_ptr(), bh, h, h_kv, s, sk, d, *_mask_args(causal, shift),
+        d ** -0.5, _stream(qh))
     _raise_if(rc, "bwd_fused")
-    LAUNCHES["bwd_fused"] += 1
+    _count("bwd_fused", shift)
     return dk, dv, dq
 
 
@@ -327,15 +380,38 @@ def use_fused_bwd(s: int) -> bool:
 # ------------------------------------------------------------ autograd
 
 
+def _heads(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, int, int]:
+    b, _, h, _ = q.shape
+    h_kv = k.shape[2]
+    if h % h_kv:
+        raise ValueError(f"num_heads {h} not a multiple of kv heads {h_kv}")
+    return b, h, h_kv
+
+
+def _backward(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+              doh: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+              b: int, h: int, h_kv: int, causal: bool,
+              shift: Optional[int]) -> Tuple[torch.Tensor, ...]:
+    """dq, dk, dv in the public layout through the fused or the split
+    kernels (:func:`use_fused_bwd`), GQA heads summed."""
+    args = (qh, kh, vh, doh, lse, delta, h, h_kv, causal, shift)
+    if use_fused_bwd(qh.shape[1]):
+        dkh, dvh, dqh = flash_bwd_fused(*args)
+    else:
+        dqh = flash_bwd_dq(*args)
+        dkh, dvh = flash_bwd_dkdv(*args)
+    dq = from_bh(dqh.to(qh.dtype), b)
+    if h == h_kv:
+        return dq, from_bh(dkh, b), from_bh(dvh, b)
+    return (dq, kv_from_bh(dkh, b, h_kv, kh.dtype),
+            kv_from_bh(dvh, b, h_kv, vh.dtype))
+
+
 class _FlashCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool) -> torch.Tensor:
-        b, _, h, _ = q.shape
-        h_kv = k.shape[2]
-        if h % h_kv:
-            raise ValueError(f"num_heads {h} not a multiple of kv heads "
-                             f"{h_kv}")
+        b, h, h_kv = _heads(q, k)
         if causal and k.shape[1] < q.shape[1]:
             raise ValueError(
                 "causal flash_attention requires s_k >= s_q (queries are "
@@ -352,19 +428,8 @@ class _FlashCore(torch.autograd.Function):
         qh, kh, vh, oh, lse = ctx.saved_tensors
         b, h, h_kv, causal = ctx.dims
         doh, delta = bwd_inputs(g.to(oh.dtype), oh)
-        args = (qh, kh, vh, doh, lse, delta, h, h_kv, causal)
-        if use_fused_bwd(qh.shape[1]):
-            dkh, dvh, dqh = flash_bwd_fused(*args)
-        else:
-            dqh = flash_bwd_dq(*args)
-            dkh, dvh = flash_bwd_dkdv(*args)
-        dq = from_bh(dqh.to(qh.dtype), b)
-        if h == h_kv:
-            dk, dv = from_bh(dkh, b), from_bh(dvh, b)
-        else:
-            dk = kv_from_bh(dkh, b, h_kv, kh.dtype)
-            dv = kv_from_bh(dvh, b, h_kv, vh.dtype)
-        return dq, dk, dv, None
+        return (*_backward(qh, kh, vh, doh, lse, delta, b, h, h_kv, causal,
+                           None), None)
 
 
 def _auto_block(seq: int, cap: int = 1024) -> int:
@@ -424,6 +489,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Consumers (models.transformer.Attention) read this to skip the GQA
 # kv-head repeat — the kernels share kv heads by index.
 flash_attention.supports_gqa = True
+
+
+class _FlashBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, h, h_kv = _heads(q, k)
+        qh, kh, vh = to_bh(q), to_bh(k), to_bh(v)
+        oh, lse = flash_fwd(qh, kh, vh, h, h_kv, False, shift=shift)
+        ctx.save_for_backward(qh, kh, vh, oh, lse)
+        ctx.dims = (b, h, h_kv, shift)
+        return from_bh(oh, b), lse
+
+    @staticmethod
+    def backward(ctx, g_out: torch.Tensor, g_lse: torch.Tensor):
+        qh, kh, vh, oh, lse = ctx.saved_tensors
+        b, h, h_kv, shift = ctx.dims
+        doh, delta = bwd_inputs(g_out.to(oh.dtype), oh)
+        # d lse / d logits is the softmax p, so the lse cotangent folds into
+        # delta: ds = p * (dp - (delta - g_lse)) (JAX :515-519).
+        delta = delta - g_lse.float()
+        return (*_backward(qh, kh, vh, doh, lse, delta, b, h, h_kv, False,
+                           shift), None)
+
+
+def flash_attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One flash pass of q ``[B, S, H, D]`` against one K/V block
+    ``[B, Sk, H_kv, D]`` under the shift mask (query i sees keys
+    ``k <= (Sk - S) + i + shift``: 0 = diagonal-causal, >= Sk = full,
+    <= -Sk = blocked). Returns ``(out [B, S, H, D]`` block-normalized,
+    ``lse [B*H, S]`` f32), both differentiable, so blocks merge
+    online-softmax style outside the kernels (ring attention). A blocked
+    block gives out = 0 and lse ~ -1e30, which merges with weight 0."""
+    return _FlashBlock.apply(q, k, v, int(shift))
 
 
 # ------------------------------------------- plain versions, public layout

@@ -1,3 +1,3 @@
-from torchft_tpu_torch.parallel.step import FTTrainer
+from torchft_tpu_torch.parallel.step import FTTrainer, SPTrainer
 
-__all__ = ["FTTrainer"]
+__all__ = ["FTTrainer", "SPTrainer"]
