@@ -9,7 +9,10 @@ Phases:
 1. **card** — the card's name and power limit (nvidia-smi), then the
    builds: the flash-attention kernels (nvcc, from
    ``torchft_tpu_torch/csrc``) and the C++ control-plane core (from
-   ``torchft_tpu_torch/_core``), both started together.
+   ``torchft_tpu_torch/_core``), both started together; the build's
+   ``-Xptxas -v`` registers and spills of every kernel are logged, and the
+   run fails if a wgmma kernel spills or if its SASS (``cuobjdump -sass``)
+   lacks HGMMA or UTMALDG.
 2. **kernels** — each of the four flash-attention kernels against its
    plain PyTorch version on the same inputs, at the slice's shape and at
    GQA / non-causal / end-aligned / odd-length shapes, in the static mode
@@ -56,6 +59,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import shutil
 import signal
 import socket
@@ -88,21 +92,29 @@ BWD_REL = 2e-2
 SP_LOSS_REL = 1e-4
 SP_GRAD_NORM_REL = 1e-3
 
-# Launch-count key -> (entry name, TPU kernel); the shift mode is the TPU
-# kernels' dynamic_shift mode (flash_attention_block, :777-811).
+# Launch-count key -> (entry name, CUDA kernel, TPU kernel); the shift mode
+# is the TPU kernels' dynamic_shift mode (flash_attention_block, :777-811).
 _TPU = "torchft_tpu/ops/flash_attention.py"
 KERNELS = {
-    "fwd": ("flash_fwd", f"{_TPU}:136"),
-    "bwd_dq": ("flash_bwd_dq", f"{_TPU}:344"),
-    "bwd_dkdv": ("flash_bwd_dkdv", f"{_TPU}:380"),
-    "bwd_fused": ("flash_bwd_fused", f"{_TPU}:420"),
-    "fwd_shift": ("flash_fwd (shift)", f"{_TPU}:136"),
-    "bwd_dq_shift": ("flash_bwd_dq (shift)", f"{_TPU}:344"),
-    "bwd_dkdv_shift": ("flash_bwd_dkdv (shift)", f"{_TPU}:380"),
-    "bwd_fused_shift": ("flash_bwd_fused (shift)", f"{_TPU}:420"),
+    "fwd": ("flash_fwd", "flash_fwd_wgmma", f"{_TPU}:136"),
+    "bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_kernel", f"{_TPU}:344"),
+    "bwd_dkdv": ("flash_bwd_dkdv", "flash_bwd_kv_kernel", f"{_TPU}:380"),
+    "bwd_fused": ("flash_bwd_fused", "flash_bwd_fused_wgmma", f"{_TPU}:420"),
+    "fwd_shift": ("flash_fwd (shift)", "flash_fwd_wgmma", f"{_TPU}:136"),
+    "bwd_dq_shift": ("flash_bwd_dq (shift)", "flash_bwd_dq_kernel",
+                     f"{_TPU}:344"),
+    "bwd_dkdv_shift": ("flash_bwd_dkdv (shift)", "flash_bwd_kv_kernel",
+                       f"{_TPU}:380"),
+    "bwd_fused_shift": ("flash_bwd_fused (shift)", "flash_bwd_fused_wgmma",
+                        f"{_TPU}:420"),
 }
+CSRC = os.path.join("torchft_tpu_torch", "csrc")
+# The kernels written on wgmma + TMA: their SASS must hold both, and their
+# build no spill.
+HOPPER_KERNELS = ("flash_fwd_wgmma", "flash_bwd_fused_wgmma")
 # (name, B, S, Sk, H, Hkv, D, causal); the first is the slice's shape,
-# "sp_split" the sp phase's short step (S_local = 128 per rank).
+# "sp_split" the sp phase's short step (S_local = 128 per rank), "d32" the
+# smallest head dim, "tile_edge" one full and one half 128-row tile.
 CASES = [
     ("slice", 1, 2048, 2048, 32, 32, 128, True),
     ("sp_split", 1, 128, 128, 32, 32, 128, True),
@@ -110,6 +122,8 @@ CASES = [
     ("noncausal", 2, 512, 512, 8, 8, 128, False),
     ("end_aligned", 1, 384, 1024, 8, 4, 128, True),
     ("odd", 1, 999, 999, 8, 8, 64, True),
+    ("d32", 2, 320, 320, 4, 2, 32, True),
+    ("tile_edge", 1, 192, 192, 8, 8, 128, True),
 ]
 # Shift-mode cases beyond (Sk, 0, -Sk) on each case above: a partial shift
 # at which every row still sees a key, -(BQ // 2) at Sk = S + BQ.
@@ -169,6 +183,8 @@ def phase_card() -> str:
     from torchft_tpu_torch import _native
     from torchft_tpu_torch.ops import flash_attention as fa
 
+    from torchft_tpu_torch._build_util import build_cuda
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
         kern = ex.submit(fa._lib)
@@ -177,7 +193,92 @@ def phase_card() -> str:
         core.result()
     log(f"builds: kernels + control-plane core in "
         f"{time.perf_counter() - t0:.1f} s")
+    check_build(build_cuda("flash_attention.cu"))
     return line
+
+
+def kernel_source(kernel: str) -> str:
+    """Path, in the repo, of the CUDA source that defines ``kernel``."""
+    for name in sorted(os.listdir(os.path.join(ROOT, CSRC))):
+        path = os.path.join(CSRC, name)
+        with open(os.path.join(ROOT, path)) as f:
+            if re.search(rf"\n{kernel}\(", f.read()):
+                return path
+    raise SmokeError(f"no source under {CSRC} defines {kernel}")
+
+
+def _cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, or the copy bundled with Triton."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    candidates = ["/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+
+        candidates.append(os.path.join(os.path.dirname(triton.__file__),
+                                       "backends", "nvidia", "bin",
+                                       "cuobjdump"))
+    except ImportError:
+        pass
+    for path in candidates:
+        if os.path.exists(path):
+            return path
+    raise SmokeError("cuobjdump not found (neither the CUDA toolkit's nor "
+                     "Triton's): the SASS check cannot run")
+
+
+def ptxas_report(text: str) -> dict:
+    """Kernel name -> registers and spill bytes, from ``-Xptxas -v``."""
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            kernels.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels.setdefault(name, {})["registers"] = int(m.group(1))
+    return kernels
+
+
+def check_hopper_kernels(kernels: dict, sass: str) -> None:
+    """Fails unless every instantiation of each wgmma kernel built with no
+    spill and its SASS (``cuobjdump -sass``) holds HGMMA and UTMALDG."""
+    for kernel in HOPPER_KERNELS:
+        built = {n: i for n, i in kernels.items() if kernel in n}
+        check(len(built) > 0, f"ptxas reported no {kernel}")
+        for n, info in built.items():
+            check(info.get("spill_stores", 0) == 0 and
+                  info.get("spill_loads", 0) == 0, f"{n} spills: {info}")
+        # "Function : <name>" heads each function's SASS.
+        bodies = [b for b in sass.split("Function : ")[1:]
+                  if kernel in b.split()[0]]
+        check(len(bodies) == len(built),
+              f"SASS holds {len(bodies)} of the {len(built)} {kernel}s")
+        for body in bodies:
+            for op in ("HGMMA", "UTMALDG"):
+                check(op in body, f"{body.split()[0]}: no {op} in its SASS")
+        log(f"sass: {kernel}: {len(bodies)} instantiations, each with "
+            "HGMMA and UTMALDG")
+
+
+def check_build(library: str) -> dict:
+    """Logs registers and spills of every kernel from the build's report,
+    then checks the wgmma kernels (:func:`check_hopper_kernels`)."""
+    with open(f"{library}.log") as f:
+        kernels = ptxas_report(f.read())
+    for name, info in kernels.items():
+        log(f"ptxas: {name} {info}")
+    sass = subprocess.run([_cuobjdump(), "-sass", library],
+                          capture_output=True, text=True, check=True).stdout
+    check_hopper_kernels(kernels, sass)
+    return kernels
 
 
 # ------------------------------------------------------------ phase 2
@@ -396,10 +497,11 @@ def phase_kernels() -> dict:
                 ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3),
                 library_ms=cuda_ms(lib) if lib is not None else None,
                 bound_ms=bound_ms, bound_by=bound_by)
-            log(f"time[{n}] kernel_ms={rows[n]['ms']:.3f} "
+            log(f"time[{n}] kernel_ms={rows[n]['ms']:.4f} "
                 f"plain_ms={rows[n]['plain_ms']:.3f} "
                 f"library_ms={rows[n]['library_ms']} "
-                f"bound_ms={bound_ms:.3f} ({bound_by})")
+                f"bound_ms={bound_ms:.4f} ({bound_by}) "
+                f"bound_share={bound_ms / rows[n]['ms']:.3f}")
         worst = fused_bwd_check.compare(q, k, v, do, causal)
         log(f"fused_bwd_check: fused vs split rel={worst:.3e}")
         check(worst <= fused_bwd_check.TOLERANCE,
@@ -828,12 +930,12 @@ def main(argv: list) -> int:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
     entries = []
-    for n, (fn, tpu) in KERNELS.items():
+    for n, (fn, kernel, tpu) in KERNELS.items():
         row = rows.get(n, {})
         entries.append({
-            "name": fn, "route": "cuda",
-            "source": "torchft_tpu_torch/csrc/flash_attention.cu",
-            "replaces": tpu, "launches": launches[n],
+            "name": fn, "kernel": kernel, "route": "cuda",
+            "source": kernel_source(kernel), "replaces": tpu,
+            "launches": launches[n],
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),

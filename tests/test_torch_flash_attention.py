@@ -190,3 +190,113 @@ def test_mixed_devices_and_unknown_devices_raise():
     x = torch.zeros(2, 8, 32)
     with pytest.raises(ValueError, match="device"):
         fa.flash_fwd(x, x.to("meta"), x, 1, 1, True)
+
+
+def _c_prototypes() -> dict:
+    """The ``extern "C"`` entry points of ``csrc/flash_attention.cu``:
+    name -> kinds of their parameters ("ptr", "int", "float")."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(fa.__file__), os.pardir, "csrc",
+                       "flash_attention.cu")
+    with open(src) as f:
+        text = f.read()
+    block = text[text.index('extern "C" {'):]
+    protos = {}
+    for name, params in re.findall(r"\bint (tft_\w+)\(([^)]*)\)", block):
+        kinds = []
+        for p in params.split(","):
+            p = " ".join(p.split())
+            kinds.append("ptr" if "*" in p else p.split()[0])
+        protos[name] = kinds
+    return protos
+
+
+def test_ctypes_argtypes_match_c_prototypes():
+    """ctypes passes each argument as its argtypes say: a pointer typed as
+    an int would be cut to 32 bits on the card only."""
+    import ctypes
+
+    kind = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+            ctypes.c_float: "float"}
+    protos = _c_prototypes()
+    table = fa.argtypes()
+    assert set(protos) == set(table)
+    for name, types in table.items():
+        assert [kind[t] for t in types] == protos[name], name
+
+
+def test_misaligned_kernel_input_raises():
+    """TMA needs 16-byte aligned bases; the wrappers check before any
+    launch."""
+    n, s, d = 1, 64, 32
+    base = torch.empty(n * s * d + 1, dtype=torch.bfloat16)
+    bad = base[1:].view(n, s, d)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    good = torch.empty(n, s, d, dtype=torch.bfloat16)
+    fa._check_kernel_inputs((good,), (), d)
+    with pytest.raises(ValueError, match="aligned"):
+        fa._check_kernel_inputs((good, bad), (), d)
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_PTXAS = """\
+ptxas info    : Function properties for _Z15flash_fwd_wgmmaILi128EEv
+    0 bytes stack frame, {fwd_spill} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Function properties for _Z21flash_bwd_fused_wgmmaILi128EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers
+ptxas info    : Function properties for _Z19flash_bwd_kv_kernelILi128EEv
+    0 bytes stack frame, 32 bytes spill stores, 52 bytes spill loads
+ptxas info    : Used 255 registers
+"""
+_SASS = """\
+\t\tFunction : _Z15flash_fwd_wgmmaILi128EEv
+        /*0100*/  UTMALDG.3D [UR8], [UR4] ;
+        /*0200*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24 ;
+\t\tFunction : _Z21flash_bwd_fused_wgmmaILi128EEv
+        /*0100*/  {bwd_load} [UR8], [UR4] ;
+        /*0200*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;
+\t\tFunction : _Z19flash_bwd_kv_kernelILi128EEv
+        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    cs = _chip_smoke()
+    kernels = cs.ptxas_report(_PTXAS.format(fwd_spill=0))
+    assert kernels["_Z19flash_bwd_kv_kernelILi128EEv"] == {
+        "spill_stores": 32, "spill_loads": 52, "registers": 255}
+    assert kernels["_Z15flash_fwd_wgmmaILi128EEv"]["registers"] == 168
+
+
+@pytest.mark.parametrize("fault", [None, "spill", "no_tma", "missing"])
+def test_wgmma_kernel_build_check(fault):
+    """chip_smoke's build check: a spill in a wgmma kernel, a wgmma kernel
+    whose SASS has no TMA load, or one missing from the SASS, fails the
+    run; a spill in the split kernels does not."""
+    cs = _chip_smoke()
+    kernels = cs.ptxas_report(_PTXAS.format(
+        fwd_spill=8 if fault == "spill" else 0))
+    sass = _SASS.format(bwd_load="LDG.E" if fault == "no_tma"
+                        else "UTMALDG.3D")
+    if fault == "missing":
+        sass = sass.replace("flash_bwd_fused_wgmma", "other_kernel")
+    if fault is None:
+        cs.check_hopper_kernels(kernels, sass)
+    else:
+        with pytest.raises(cs.SmokeError):
+            cs.check_hopper_kernels(kernels, sass)

@@ -66,12 +66,14 @@ def nvcc() -> str:
 
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def build_cuda(source: str) -> str:
     """Compile ``csrc/<source>`` (and the ``.cuh`` headers beside it) into
-    a shared library; returns its path. Builds at most once per content."""
+    a shared library; returns its path. Builds at most once per content.
+    The compiler's output (``-Xptxas -v``: registers and spills of every
+    kernel) is kept beside the library as ``<library>.log``."""
     src = os.path.join(CSRC_DIR, source)
     headers = sorted(os.path.join(CSRC_DIR, n) for n in os.listdir(CSRC_DIR)
                      if n.endswith(".cuh"))
@@ -91,6 +93,8 @@ def build_cuda(source: str) -> str:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {source}:\n{proc.stdout}\n{proc.stderr}")
+        with open(f"{out}.log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     return out
 

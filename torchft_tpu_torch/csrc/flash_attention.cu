@@ -1,6 +1,6 @@
 // Flash attention for Hopper (sm_90a): forward, split backward (dq and
-// dk/dv) and fused backward, written by hand with WMMA bf16 16x16x16
-// fragments and f32 accumulation.
+// dk/dv) and fused backward, written by hand, bf16 inputs and f32
+// accumulation.
 //
 // Counterparts of the four Pallas kernels in
 // torchft_tpu/ops/flash_attention.py. They compute what those compute and
@@ -30,16 +30,23 @@
 // on one core and carries sums in VMEM from one grid step to the next;
 // here blocks run in parallel in no order, so the TPU's sequential grid
 // axis becomes a loop inside the block:
-//   * forward and dq: one block per (bh, 64-row q tile), looping over k tiles;
-//   * dk/dv and fused: one block per (bh, 64-row k tile), looping over q tiles.
-// The fused kernel's dq is summed across k-tile blocks with f32 atomicAdd
+//   * forward and dq: one block per (bh, q tile), looping over k tiles;
+//   * dk/dv and fused: one block per (bh, k tile), looping over q tiles.
+// The fused kernel's dq is summed across k-tile blocks with f32 atomics
 // into a zeroed [B*H, S, D] f32 buffer the caller allocates (the TPU kernel
 // used an aliased HBM read-modify-write along its sequential grid axis).
 //
-// Tiles come from the H100's shared memory, not the TPU's VMEM: 64 x 64
-// tiles, four warps per block, each warp owning 16 rows. At D = 128 a block
-// holds ~110-125 KB of shared memory, above the 48 KB default, so every
-// launch raises cudaFuncAttributeMaxDynamicSharedMemorySize first.
+// Two generations of kernels live here:
+//   * the forward and the fused backward are written for Hopper (wgmma,
+//     TMA, warp specialisation; hopper.cuh): 128-row tiles, one producer
+//     warpgroup that keeps TMA loads in flight through a two-stage ring of
+//     shared-memory tiles, two consumer warpgroups that keep every
+//     accumulator in registers;
+//   * the split dq and dk/dv kernels are the first port's WMMA kernels:
+//     64 x 64 tiles, four warps per block, each warp owning 16 rows; at
+//     D = 128 a block holds ~110-125 KB of shared memory.
+// Every launch above 48 KB of shared memory raises
+// cudaFuncAttributeMaxDynamicSharedMemorySize first.
 //
 // Kernels allocate nothing and do not synchronise. Each C entry point
 // returns cudaGetLastError() after its launch.
@@ -48,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
@@ -76,8 +85,6 @@ template <int D> struct Geo {
   // for a 16 x D f32 tile (dq part, dk/dv conversion).
   static constexpr int WARP_SCR =
       (2 * WARP_S > WARP_O ? 2 * WARP_S : WARP_O);
-  static constexpr int FWD_SMEM =
-      3 * TILE_H + NWARPS * (WARP_S + 16 * LDP * 2 + WARP_O);
   static constexpr int BWD_SMEM =
       4 * TILE_H + 2 * TILE_P + NWARPS * WARP_SCR + 2 * 64 * 4;
 };
@@ -123,135 +130,38 @@ __device__ __forceinline__ void warp_abt(const bf16* a, const bf16* b,
   }
 }
 
-// Visibility of tile entry (query row qr of tile qi, key column kc of
-// tile kj): in range, and on or left of the diagonal k = q + offset.
+// Visibility of tile entry (query row q, key k): in range, and on or left
+// of the diagonal k = q + offset. TQ x TK is the tile, 64 x 64 unless a
+// kernel says otherwise.
 struct Mask {
   int S, Sk, offset;
   __device__ __forceinline__ bool visible(int q, int k) const {
     return q < S && k < Sk && q + offset >= k;
   }
-  // Every entry of the (qi, kj) tile visible: no element mask needed.
+  // Every entry of the tile at (q0, k0) visible: no element mask needed.
+  template <int TQ = BQ, int TK = BK>
   __device__ __forceinline__ bool full(int q0, int k0) const {
-    if (q0 + BQ > S || k0 + BK > Sk) return false;
-    return q0 + offset >= k0 + BK - 1;
+    if (q0 + TQ > S || k0 + TK > Sk) return false;
+    return q0 + offset >= k0 + TK - 1;
   }
   // Key tiles that the rows of the q tile at q0 see: [0, return). A tile
   // whose rows see no key (last < 0) runs none; C division truncates
-  // toward zero, so -BK < last < 0 would otherwise give 1.
+  // toward zero, so -TK < last < 0 would otherwise give 1.
+  template <int TQ = BQ, int TK = BK>
   __device__ __forceinline__ int key_tiles(int q0) const {
-    const int last = q0 + BQ - 1 + offset;  // last key any row here sees
-    const int lim = last < 0 ? 0 : last / BK + 1;
-    const int nkb = (Sk + BK - 1) / BK;
+    const int last = q0 + TQ - 1 + offset;  // last key any row here sees
+    const int lim = last < 0 ? 0 : last / TK + 1;
+    const int nkb = (Sk + TK - 1) / TK;
     return lim < nkb ? lim : nkb;
   }
+  // First q tile of TQ rows whose last row reaches key k0; at or past the
+  // last tile when no row does (a blocking shift).
+  template <int TQ = BQ>
+  __device__ __forceinline__ int first_q_tile(int k0) const {
+    const int need = k0 - offset - (TQ - 1);
+    return need > 0 ? (need + TQ - 1) / TQ : 0;
+  }
 };
-
-// ---------------------------------------------------------------- forward
-// Replaces _fwd_kernel (torchft_tpu/ops/flash_attention.py:136-207), grid
-// (q tiles, B*H). Bound on this card: at S = 2048, D = 128 it does
-// 4 * S * S * D / 2 causal flops per head against 4 * S * D * 2 bytes, so
-// it is bound by the tensor cores; this first version reaches only part of
-// their rate (WMMA, no TMA, the O accumulator kept in shared memory so the
-// online-softmax rescale can touch it row by row).
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int Hkv, int S, int Sk,
-                 int offset, float scale) {
-  using G = Geo<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + G::TILE_H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * G::TILE_H);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  unsigned char* wbase = smem + 3 * G::TILE_H +
-                         warp * (G::WARP_S + 16 * LDP * 2 + G::WARP_O);
-  float* sS = reinterpret_cast<float*>(wbase);
-  bf16* sP = reinterpret_cast<bf16*>(wbase + G::WARP_S);
-  float* sO = reinterpret_cast<float*>(wbase + G::WARP_S + 16 * LDP * 2);
-
-  const int qi = blockIdx.x, bh = blockIdx.y;
-  const int q0 = qi * BQ;
-  const Mask mask{S, Sk, offset};
-  const bf16* qb = q + (size_t)bh * S * D;
-  const int kvr = kv_row(bh, H, Hkv);
-  const bf16* kb = k + (size_t)kvr * Sk * D;
-  const bf16* vb = v + (size_t)kvr * Sk * D;
-
-  load_tile<D>(sQ, qb, q0, S);
-  for (int i = lane; i < 16 * G::LDO; i += 32) sO[i] = 0.0f;
-
-  // Lane pair (2r, 2r+1) owns row r of the warp's 16; each lane one half.
-  const int row = lane >> 1, half = lane & 1;
-  const int qrow = q0 + warp * 16 + row;
-  float m = NEG_INF, l = 0.0f;
-
-  const int nkb = mask.key_tiles(q0);
-  for (int kj = 0; kj < nkb; ++kj) {
-    const int k0 = kj * BK;
-    __syncthreads();
-    load_tile<D>(sK, kb, k0, Sk);
-    load_tile<D>(sV, vb, k0, Sk);
-    __syncthreads();
-    warp_abt<D>(sQ + warp * 16 * G::LDH, sK, sS);
-    __syncwarp();
-
-    const bool full = mask.full(q0, k0);
-    float s[32];
-    float tmax = NEG_INF;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      int col = half * 32 + c;
-      float x = sS[row * LDS + col] * scale;
-      if (!full && !mask.visible(qrow, k0 + col)) x = NEG_INF;
-      s[c] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    float tsum = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const bool vis = full || mask.visible(qrow, k0 + half * 32 + c);
-      float p = vis ? expf(s[c] - m_new) : 0.0f;
-      tsum += p;
-      sP[row * LDP + half * 32 + c] = __float2bfloat16(p);
-    }
-    tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
-    l = l * corr + tsum;
-    m = m_new;
-    for (int d = half * (D / 2); d < (half + 1) * (D / 2); ++d)
-      sO[row * G::LDO + d] *= corr;
-    __syncwarp();
-
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + n * 16, G::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + kk * 16, LDP);
-        wmma::load_matrix_sync(fb, sV + kk * 16 * G::LDH + n * 16, G::LDH);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + n * 16, acc, G::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  if (qrow < S) {
-    const float lc = fmaxf(l, 1e-30f);
-    const float inv = 1.0f / lc;
-    bf16* ob = o + ((size_t)bh * S + qrow) * D;
-    for (int d = half * (D / 2); d < (half + 1) * (D / 2); ++d)
-      ob[d] = __float2bfloat16(sO[row * G::LDO + d] * inv);
-    if (half == 0) lse[(size_t)bh * S + qrow] = m + logf(lc);
-  }
-}
 
 // ----------------------------------------------------- backward, shared
 // Phase 1 of every backward kernel for one warp's 16 query rows of the
@@ -387,26 +297,22 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 scale);
 }
 
-// --------------------------------------------- backward dk/dv, and fused
-// Replaces _bwd_dkdv_kernel (FUSED = false, torchft_tpu/ops/
-// flash_attention.py:380-417) and _bwd_fused_kernel (FUSED = true, :420-483),
+// ------------------------------------------------------ backward dk/dv
+// Replaces _bwd_dkdv_kernel (torchft_tpu/ops/flash_attention.py:380-417),
 // grid (k tiles, B*H). Per q tile: phase 1 recomputes p and ds for the
 // 64 x 64 block (warps own query rows), phase 2 accumulates
 // dv += p^T . do and dk += ds^T . q in register fragments (warps own key
-// rows), and the fused kernel's phase 3 adds ds . k * scale into the f32 dq
-// buffer with atomicAdd (warps own query rows again). dk/dv are written per
-// QUERY head; the caller sums the heads that share a kv head, as
-// kv_from_bh does. Bound by the tensor cores at the slice's shapes; the
-// fused kernel saves the split path's second recompute (5 matmuls per
-// block instead of 7) at the price of the dq atomics.
-template <int D, bool FUSED>
+// rows). dk/dv are written per QUERY head; the caller sums the heads that
+// share a kv head, as kv_from_bh does. Bound by the tensor cores at the
+// slice's shapes.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, float* __restrict__ dq,
-                    int H, int Hkv, int S, int Sk, int offset, float scale) {
+                    bf16* __restrict__ dv, int H, int Hkv, int S, int Sk,
+                    int offset, float scale) {
   using G = Geo<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -415,7 +321,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sV = reinterpret_cast<bf16*>(smem + 3 * G::TILE_H);
   bf16* sP = reinterpret_cast<bf16*>(smem + 4 * G::TILE_H);
   bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * G::TILE_H + G::TILE_P);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   float* scr = reinterpret_cast<float*>(smem + 4 * G::TILE_H +
                                         2 * G::TILE_P + warp * G::WARP_SCR);
   float* sLse = reinterpret_cast<float*>(smem + 4 * G::TILE_H +
@@ -439,10 +345,9 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const int nqb = (S + BQ - 1) / BQ;
-  // First q tile whose last row reaches this tile's first key; at or past
-  // nqb when no row does (a blocking shift): dk/dv stay zero.
-  const int need = k0 - mask.offset - (BQ - 1);
-  const int qi_start = need > 0 ? (need + BQ - 1) / BQ : 0;
+  // At or past nqb when no row reaches this tile (a blocking shift):
+  // dk/dv stay zero.
+  const int qi_start = mask.first_q_tile(k0);
   const bf16* qb = q + (size_t)bh * S * D;
   const bf16* dob = dout + (size_t)bh * S * D;
   for (int qi = qi_start; qi < nqb; ++qi) {
@@ -476,41 +381,574 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wmma::mma_sync(dk_acc[n], fa, fb, dk_acc[n]);
       }
     }
-    if constexpr (FUSED) {
-      // Phase 3: this warp's 16 query rows, dq part = ds . k * scale.
-      const bf16* sdSw = sdS + warp * 16 * LDP;
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-        wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-              fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fa, sdSw + kk * 16, LDP);
-          wmma::load_matrix_sync(fb, sK + kk * 16 * G::LDH + n * 16, G::LDH);
-          wmma::mma_sync(c, fa, fb, c);
-        }
-        wmma::store_matrix_sync(scr + n * 16, c, G::LDO, wmma::mem_row_major);
-      }
-      __syncwarp();
-      const int r0 = q0 + warp * 16;
-      float* dqb = dq + (size_t)bh * S * D;
-      for (int i = lane; i < 16 * D; i += 32) {
-        const int r = i / D, d = i % D;
-        if (r0 + r < S)
-          atomicAdd(dqb + (size_t)(r0 + r) * D + d,
-                    scr[r * G::LDO + d] * scale);
-      }
-    }
   }
   __syncthreads();
   store_rows<D>(dk_acc, scr, dk + (size_t)bh * Sk * D, k0 + warp * 16, Sk,
                 scale);
   store_rows<D>(dv_acc, scr, dv + (size_t)bh * Sk * D, k0 + warp * 16, Sk,
                 1.0f);
+}
+
+// ------------------------------------------------------- Hopper kernels
+// Geometry of the wgmma kernels' shared-memory tiles at head dim D: rows
+// of D bf16 cut into D / AW swizzle atoms of AW columns (hopper.cuh).
+template <int D> struct Tiles {
+  static constexpr int AW = D < 64 ? D : 64;  // atom width, bf16 columns
+  static constexpr int SW = AW * 2;           // swizzle width = atom row, bytes
+  static constexpr int NA = D / AW;           // atoms per row
+  static constexpr int KSTEPS = AW / 16;      // k16 steps per atom
+  static constexpr int SBO = 8 * SW;          // bytes between 8-row groups
+  // Bytes of a tile of `rows` rows.
+  static constexpr int bytes(int rows) { return rows * D * 2; }
+};
+
+constexpr int HT = 128;                // rows of the wgmma kernels' tiles
+constexpr int HQ_BWD = 64;             // q rows per step of the fused backward
+constexpr int HQ_HALF = 32;            // q rows per half step of its consumers
+constexpr int NCONSUMERS = 2;          // consumer warpgroups, 64 rows each
+constexpr int HTHREADS = 128 * (1 + NCONSUMERS);
+constexpr int CONSUMER_BAR = 1;        // named barrier of the consumers
+// Registers a thread after setmaxnreg: the launch gives each of the 384
+// threads 168 (65,536 / 384, rounded down to 8); the producer warpgroup
+// hands 168 - PRODUCER_REGS each to the consumers.
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 168 + (168 - PRODUCER_REGS) / NCONSUMERS;
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * NCONSUMERS <=
+                  168 * HTHREADS,
+              "register split exceeds the launch's pool");
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// This thread's warpgroup, read from lane 0 (CUTLASS's
+// canonical_warp_group_idx): the compiler then knows it is the same across
+// the warp, and descriptors built from it live in uniform registers.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+}
+
+// K-major descriptor of rows [r0, r0 + 64) of a [rows, D] tile, at the
+// first k16 step of the D contraction; kstep() is the offset of step kk.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile,
+                                           int r0) {
+  using T = Tiles<D>;
+  return hopper::desc(tile + r0 * T::SW, 16, T::SBO, T::SW);
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t kstep(int rows, int kk) {
+  using T = Tiles<D>;
+  return ((kk / T::KSTEPS) * rows * T::SW + (kk % T::KSTEPS) * 32) >> 4;
+}
+
+// MN-major descriptor of a [rows, D] tile contracted over its rows, from
+// atom `atom` of the columns, at the first k16 step; mnstep() is the
+// offset of step kk.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile,
+                                            int rows, int atom) {
+  using T = Tiles<D>;
+  return hopper::desc(tile + atom * rows * T::SW, rows * T::SW, T::SBO,
+                      T::SW);
+}
+
+template <int D> __device__ __forceinline__ uint64_t mnstep(int kk) {
+  return (kk * 16 * Tiles<D>::SW) >> 4;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The A operand of a k16 step from a 64 x N accumulator (Wgmma layout):
+// its 8-column chunks 2 kk and 2 kk + 1, as bf16.
+__device__ __forceinline__ void acc_to_a(const float* acc, int kk,
+                                         uint32_t* a) {
+  a[0] = hopper::pack_bf16(acc[8 * kk + 0], acc[8 * kk + 1]);
+  a[1] = hopper::pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+  a[2] = hopper::pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+  a[3] = hopper::pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+}
+
+// Shared memory of the forward: Q tile, then two stages of K and V, then
+// the barriers; plus slack to align the base to 1024 bytes.
+template <int D> struct FwdSmem {
+  static constexpr int Q = Tiles<D>::bytes(HT);
+  static constexpr int KV = Tiles<D>::bytes(HT);
+  static constexpr int BARS = Q + 4 * KV;
+  static constexpr int TOTAL = BARS + 64 + 1024;
+};
+
+// ----------------------------------------------------- forward (wgmma)
+// Replaces _fwd_kernel (torchft_tpu/ops/flash_attention.py:136-207), grid
+// (q tiles of 128 rows, B*H), heaviest causal tile first. Bound by the
+// tensor cores at the slice's shape (4 S^2 D / 2 causal flops a head
+// against 8 S D bytes). Warpgroup 0 is the producer: one thread loads the
+// Q tile once and K/V tiles of 128 keys through a two-stage ring by TMA;
+// warpgroups 1 and 2 each own 64 query rows: S = Q K^T by wgmma from
+// shared memory into registers, the online softmax on the accumulator
+// layout (a row lives in one quad of lanes), P converted in registers and
+// fed as wgmma's A operand for O += P V, O rescaled in registers.
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                bf16* __restrict__ o, float* __restrict__ lse, int H,
+                int Hkv, int S, int Sk, int offset, float scale_log2) {
+  using T = Tiles<D>;
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // Offset from the __shared__ array (not a round trip through an
+  // integer) keeps every tile pointer a 32-bit shared address.
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = bars;       // [2] K/V stage loaded
+  uint64_t* empty = bars + 2;  // [2] K/V stage released
+  uint64_t* qbar = bars + 4;
+
+  const int nqt = (S + HT - 1) / HT;
+  const int q0 = (nqt - 1 - (int)blockIdx.x) * HT;
+  const int bh = blockIdx.y;
+  const Mask mask{S, Sk, offset};
+  const int nkt = mask.key_tiles<HT, HT>(q0);
+  const int wg = warpgroup();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128 * NCONSUMERS);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0 && nkt > 0) {
+      const int kvr = kv_row(bh, H, Hkv);
+      hopper::mbar_expect_tx(qbar, L::Q);
+      for (int a = 0; a < T::NA; ++a)
+        hopper::tma_load_3d(sQ + a * HT * T::SW, &tm_q, qbar, a * T::AW, q0,
+                            bh);
+#pragma unroll 1
+      for (int t = 0; t < nkt; ++t) {
+        const int s = hopper::opaque(t & 1);
+        unsigned char* sK = smem + L::Q + s * 2 * L::KV;
+        unsigned char* sV = sK + L::KV;
+        hopper::mbar_wait(&empty[s], ((t >> 1) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], 2 * L::KV);
+        for (int a = 0; a < T::NA; ++a) {
+          hopper::tma_load_3d(sK + a * HT * T::SW, &tm_k, &full[s],
+                              a * T::AW, t * HT, kvr);
+          hopper::tma_load_3d(sV + a * HT * T::SW, &tm_v, &full[s],
+                              a * T::AW, t * HT, kvr);
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;                     // rows [64 c, 64 c + 64)
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int qc0 = q0 + 64 * c;              // this consumer's first row
+    const int rows[2] = {qc0 + 16 * w + lane / 4, qc0 + 16 * w + lane / 4 + 8};
+    const int col = 2 * (lane % 4);           // first column in a chunk
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+    if (nkt > 0) hopper::mbar_wait(qbar, 0);
+    for (int t = 0; t < nkt; ++t) {
+      const int s = t & 1, k0 = t * HT;
+      const unsigned char* sK = smem + L::Q + s * 2 * L::KV;
+      const unsigned char* sV = sK + L::KV;
+      hopper::mbar_wait(&full[s], (t >> 1) & 1);
+
+      float sacc[HT / 2];
+      const uint64_t q_desc = kmajor<D>(sQ, 64 * c);
+      const uint64_t k_desc = kmajor<D>(sK, 0);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::Wgmma<HT>::ss<0, 0>(sacc, q_desc + kstep<D>(HT, kk),
+                                    k_desc + kstep<D>(HT, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<HT / 2>(sacc);
+
+      // Online softmax in the log2 domain; masked entries -> NEG_INF for
+      // the max and p = 0 by a select. Column 8 j + e' (e' = e & 1) of row
+      // i is visible iff 8 j + e' <= lim[i]: on or left of the diagonal,
+      // below Sk, in a row below S.
+      const bool all = mask.full<64, HT>(qc0, k0);
+      const int cx = hopper::opaque(col);
+      int lim[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        lim[i] = rows[i] < S ? min(rows[i] + offset, Sk - 1) - k0 - cx : -1;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < HT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sacc[4 * j + e] * scale_log2;
+          if (!all && 8 * j + (e & 1) > lim[e >> 1]) x = NEG_INF;
+          sacc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = quad_max(mx[i]);
+        corr[i] = exp2f(m[i] - mx[i]);
+        m[i] = mx[i];
+        l[i] *= corr[i];
+      }
+#pragma unroll
+      for (int j = 0; j < HT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool vis = all || 8 * j + (e & 1) <= lim[e >> 1];
+          const float p = vis ? exp2f(sacc[4 * j + e] - m[e >> 1]) : 0.0f;
+          sacc[4 * j + e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= corr[e >> 1];
+
+      uint32_t pa[HT / 4];
+#pragma unroll
+      for (int kk = 0; kk < HT / 16; ++kk) acc_to_a(sacc, kk, pa + 4 * kk);
+      const uint64_t v_desc = mnmajor<D>(sV, HT, 0);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HT / 16; ++kk)
+        hopper::Wgmma<D>::template rs<1>(oacc, pa + 4 * kk,
+                                         v_desc + mnstep<D>(kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<D / 2>(oacc);
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float lc = fmaxf(quad_sum(l[i]), 1e-30f);
+      if (rows[i] >= S) continue;
+      const float inv = 1.0f / lc;
+      bf16* orow = o + ((size_t)bh * S + rows[i]) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + col) = hopper::pack_bf16(
+            oacc[4 * j + 2 * i] * inv, oacc[4 * j + 2 * i + 1] * inv);
+      // A row that saw no key keeps m = NEG_INF: lse = NEG_INF + log(1e-30)
+      // as the first kernels wrote it.
+      if (lane % 4 == 0)
+        lse[(size_t)bh * S + rows[i]] =
+            (m[i] == NEG_INF ? NEG_INF : m[i] * LN2) + logf(lc);
+    }
+  }
+}
+
+// Shared memory of the fused backward: K and V tiles of 128 keys, two
+// dS^T tiles [128 keys, 64 q], two stages of Q and dO tiles of 64 rows and
+// their lse / delta, then the barriers; plus slack for 1024-byte alignment.
+template <int D> struct BwdSmem {
+  static constexpr int KV = Tiles<D>::bytes(HT);
+  static constexpr int DS = HT * HQ_BWD * 2;
+  static constexpr int QD = Tiles<D>::bytes(HQ_BWD);
+  static constexpr int STAGE0 = 2 * KV + 2 * DS;  // stage s: Q, dO
+  static constexpr int STATS = STAGE0 + 4 * QD;   // [2][lse 64, delta 64]
+  static constexpr int BARS = STATS + 2 * 2 * HQ_BWD * 4;
+  static constexpr int TOTAL = BARS + 64 + 1024;
+};
+
+// ------------------------------------------------ fused backward (wgmma)
+// Replaces _bwd_fused_kernel (torchft_tpu/ops/flash_attention.py:420-483),
+// grid (k tiles of 128 keys, B*H). Bound by the tensor cores at the
+// slice's shape (5 matmuls per visible entry). K and V stay in shared
+// memory after one TMA load each; warpgroup 0 is the producer: one thread
+// streams Q and dO tiles of 64 rows by TMA through a two-stage ring, one
+// warp loads their lse / delta. Warpgroups 1 and 2 each own 64 keys and
+// take a q tile in two halves of 32 rows: S^T = K Q^T and dP^T = V dO^T by
+// wgmma into registers, P^T and dS^T in registers, dV += P^T dO and
+// dK += dS^T Q with A from registers (dK, dV stay in registers over the
+// whole q loop). dS^T also goes to shared memory once, and dQ = dS K is
+// one wgmma product over all 128 keys and 64 q rows, each
+// consumer taking one 64-column atom of D (consumer 0 alone below
+// D = 128), added to the f32 dq buffer by vector atomics.
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 1)
+flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, float* __restrict__ dq, int H,
+                      int Hkv, int S, int Sk, int offset, float scale) {
+  using T = Tiles<D>;
+  using L = BwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // Offset from the __shared__ array (not a round trip through an
+  // integer) keeps every tile pointer a 32-bit shared address.
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + L::KV;
+  unsigned char* sdS = smem + 2 * L::KV;  // [2][128 keys][64 q], swizzled
+  float* stats = reinterpret_cast<float*>(smem + L::STATS);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = bars;       // [2] Q/dO/lse/delta stage loaded
+  uint64_t* empty = bars + 2;  // [2] stage released
+  uint64_t* kvbar = bars + 4;
+
+  const int k0 = blockIdx.x * HT, bh = blockIdx.y;
+  const Mask mask{S, Sk, offset};
+  const int nqb = (S + HQ_BWD - 1) / HQ_BWD;
+  const int qi0 = mask.first_q_tile<HQ_BWD>(k0);
+  const int nit = qi0 < nqb ? nqb - qi0 : 0;
+  const int wg = warpgroup();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // TMA thread + the stats warp
+      hopper::mbar_init(&empty[s], 128 * NCONSUMERS);
+    }
+    hopper::mbar_init(kvbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0 && nit > 0) {
+      const int kvr = kv_row(bh, H, Hkv);
+      hopper::mbar_expect_tx(kvbar, 2 * L::KV);
+      for (int a = 0; a < T::NA; ++a) {
+        hopper::tma_load_3d(sK + a * HT * T::SW, &tm_k, kvbar, a * T::AW, k0,
+                            kvr);
+        hopper::tma_load_3d(sV + a * HT * T::SW, &tm_v, kvbar, a * T::AW, k0,
+                            kvr);
+      }
+      // One thread, 24 registers: a rolled loop, addresses made per step.
+#pragma unroll 1
+      for (int it = 0; it < nit; ++it) {
+        const int s = hopper::opaque(it & 1), q0 = (qi0 + it) * HQ_BWD;
+        unsigned char* sQ = smem + L::STAGE0 + s * 2 * L::QD;
+        unsigned char* sdO = sQ + L::QD;
+        hopper::mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], 2 * L::QD);
+        for (int a = 0; a < T::NA; ++a) {
+          hopper::tma_load_3d(sQ + a * HQ_BWD * T::SW, &tm_q, &full[s],
+                              a * T::AW, q0, bh);
+          hopper::tma_load_3d(sdO + a * HQ_BWD * T::SW, &tm_do, &full[s],
+                              a * T::AW, q0, bh);
+        }
+      }
+    } else if (warp == 1) {
+      // lse / delta rows are S floats apart: no TMA alignment, plain loads.
+#pragma unroll 1
+      for (int it = 0; it < nit; ++it) {
+        const int s = hopper::opaque(it & 1), q0 = (qi0 + it) * HQ_BWD;
+        float* st = stats + s * 2 * HQ_BWD;
+        hopper::mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
+        for (int r = lane; r < HQ_BWD; r += 32) {
+          const bool ok = q0 + r < S;
+          st[r] = ok ? lse[(size_t)bh * S + q0 + r] : 0.0f;
+          st[HQ_BWD + r] = ok ? delta[(size_t)bh * S + q0 + r] : 0.0f;
+        }
+        hopper::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    // This thread's lane indices are rederived inside the q loop from an
+    // opaque copy of threadIdx.x rather than held in registers across it.
+    const int c = wg - 1;                     // keys [k0 + 64 c, + 64)
+    float dkacc[D / 2], dvacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.0f;
+
+    if (nit > 0) hopper::mbar_wait(kvbar, 0);
+    for (int it = 0; it < nit; ++it) {
+      const int s = it & 1, q0 = (qi0 + it) * HQ_BWD;
+      const unsigned char* sQ = smem + L::STAGE0 + s * 2 * L::QD;
+      const unsigned char* sdO = sQ + L::QD;
+      const float* sLse = stats + s * 2 * HQ_BWD;
+      const float* sDelta = sLse + HQ_BWD;
+      unsigned char* dsT = sdS + (it & 1) * L::DS;
+      hopper::mbar_wait(&full[s], (it >> 1) & 1);
+
+      // The 64 q rows in two halves of HQ_HALF: per half, S^T = K Q^T,
+      // P^T = exp(S^T scale - lse) in place, dP^T = V dO^T, dS^T = P^T
+      // (dP^T - delta) in place, then dV += P^T dO and dK += dS^T Q over
+      // the half's two k16 steps. One half at a time keeps dK, dV and
+      // 64 x 32 tiles at most in registers.
+      const int tid = hopper::opaque((int)threadIdx.x);
+      const int lane = tid % 32, w = (tid / 32) % 4;
+      const int krow = 64 * c + 16 * w + lane / 4;  // first key row, in tile
+      const int keys[2] = {k0 + krow, k0 + krow + 8};
+      const int cx = 2 * (lane % 4);                 // first column in a chunk
+      const bool all = mask.full<HQ_BWD, 64>(q0, k0 + 64 * c);
+      const int hi = S - q0 - cx;
+      int lo[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        lo[i] = keys[i] < Sk ? keys[i] - offset - q0 - cx : HQ_BWD;
+      const uint64_t k_desc = kmajor<D>(sK, 64 * c);
+      const uint64_t v_desc = kmajor<D>(sV, 64 * c);
+      const uint64_t do_mn = mnmajor<D>(sdO, HQ_BWD, 0);
+      const uint64_t q_mn = mnmajor<D>(sQ, HQ_BWD, 0);
+      // Rows krow and krow + 8 of dS^T both have r % 8 = lane / 4.
+      unsigned char* ds_row = dsT + krow * 128 + 2 * cx;
+      const int swz = lane / 4;
+#pragma unroll
+      for (int h = 0; h < HQ_BWD / HQ_HALF; ++h) {
+        float sacc[HQ_HALF / 2], pacc[HQ_HALF / 2];
+        const uint64_t q_desc = kmajor<D>(sQ, h * HQ_HALF);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::Wgmma<HQ_HALF>::ss<0, 0>(sacc, k_desc + kstep<D>(HT, kk),
+                                           q_desc + kstep<D>(HQ_BWD, kk),
+                                           kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<HQ_HALF / 2>(sacc);
+        // Rows of S^T are keys, columns q rows: column q0 + cx + qc of
+        // key row i is visible iff lo[i] <= qc < hi. p and ds follow the
+        // split kernels' recompute_p_ds formula for formula (expf on the
+        // natural-log lse), so that fused and split round alike.
+#pragma unroll
+        for (int j = 0; j < HQ_HALF / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = h * HQ_HALF + 8 * j + (e & 1);
+            const bool vis = all || (qc >= lo[e >> 1] && qc < hi);
+            sacc[4 * j + e] =
+                vis ? expf(sacc[4 * j + e] * scale - sLse[cx + qc]) : 0.0f;
+          }
+
+        const uint64_t do_desc = kmajor<D>(sdO, h * HQ_HALF);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::Wgmma<HQ_HALF>::ss<0, 0>(pacc, v_desc + kstep<D>(HT, kk),
+                                           do_desc + kstep<D>(HQ_BWD, kk),
+                                           kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<HQ_HALF / 2>(pacc);
+#pragma unroll
+        for (int j = 0; j < HQ_HALF / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = h * HQ_HALF + 8 * j + (e & 1);
+            pacc[4 * j + e] =
+                sacc[4 * j + e] * (pacc[4 * j + e] - sDelta[cx + qc]);
+          }
+        uint32_t pa[HQ_HALF / 4], da[HQ_HALF / 4];
+#pragma unroll
+        for (int kk = 0; kk < HQ_HALF / 16; ++kk) {
+          acc_to_a(sacc, kk, pa + 4 * kk);
+          acc_to_a(pacc, kk, da + 4 * kk);
+        }
+        // dS^T to shared memory, [128 keys][64 q] with the 128-byte
+        // swizzle (16-byte chunk jj of row r at chunk jj ^ (r % 8)): dQ's
+        // A operand, MN-major. This thread's columns of 8-column chunk j
+        // lie in chunk jj = h * HQ_HALF / 8 + j, and its (row i, columns
+        // col, col + 1) pair is register da[4 (j / 2) + 2 (j % 2) + i]
+        // (acc_to_a's order).
+#pragma unroll
+        for (int j = 0; j < HQ_HALF / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            *reinterpret_cast<uint32_t*>(
+                ds_row + i * 8 * 128 + (((h * HQ_HALF / 8 + j) ^ swz) << 4)) =
+                da[4 * (j / 2) + 2 * (j % 2) + i];
+
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HQ_HALF / 16; ++kk) {
+          const int step = h * HQ_HALF / 16 + kk;
+          hopper::Wgmma<D>::template rs<1>(dvacc, pa + 4 * kk,
+                                           do_mn + mnstep<D>(step), 1);
+          hopper::Wgmma<D>::template rs<1>(dkacc, da + 4 * kk,
+                                           q_mn + mnstep<D>(step), 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<D / 2>(dvacc);
+        hopper::fence_regs<D / 2>(dkacc);
+      }
+      hopper::fence_async_smem();
+      // Q, dO, lse and delta of this stage are read.
+      hopper::mbar_arrive(&empty[s]);
+      // Both consumers' rows of dS^T are written.
+      hopper::named_barrier(CONSUMER_BAR, 128 * NCONSUMERS);
+      // dQ: consumer c takes atom c of D's columns; below D = 128 there is
+      // one atom and consumer 0 takes it.
+      const bool does_dq = c < T::NA;
+      float qacc[T::AW / 2];
+      if (does_dq) {
+        // dS^T rows are 128 bytes (64 q), whatever D.
+        const uint64_t ds_desc = hopper::desc(dsT, HT * 128, 1024, 128);
+        const uint64_t k_mn = mnmajor<D>(sK, HT, c);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HT / 16; ++kk)
+          hopper::Wgmma<T::AW>::template ss<1, 1>(
+              qacc, ds_desc + ((kk * 16 * 128) >> 4), k_mn + mnstep<D>(kk),
+              kk > 0);
+        hopper::wgmma_commit();
+      }
+      hopper::wgmma_wait<0>();
+      if (does_dq) {
+        hopper::fence_regs<T::AW / 2>(qacc);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int q = q0 + 16 * w + lane / 4 + 8 * i;
+          if (q >= S) continue;
+          float* dqrow = dq + ((size_t)bh * S + q) * D + c * T::AW + cx;
+#pragma unroll
+          for (int j = 0; j < T::AW / 8; ++j)
+            atomicAdd(reinterpret_cast<float2*>(dqrow + 8 * j),
+                      make_float2(qacc[4 * j + 2 * i] * scale,
+                                  qacc[4 * j + 2 * i + 1] * scale));
+        }
+      }
+    }
+
+    const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4;
+    const int col = 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = k0 + 64 * c + 16 * w + lane / 4 + 8 * i;
+      if (key >= Sk) continue;
+      const size_t off = ((size_t)bh * Sk + key) * D + col;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) = hopper::pack_bf16(
+            dkacc[4 * j + 2 * i] * scale, dkacc[4 * j + 2 * i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) = hopper::pack_bf16(
+            dvacc[4 * j + 2 * i], dvacc[4 * j + 2 * i + 1]);
+      }
+    }
+  }
 }
 
 // The kernels' mask: the diagonal offset of the end-aligned causal mask
@@ -526,17 +964,35 @@ cudaError_t prepare(K kernel, int smem) {
                               smem);
 }
 
+// TMA maps of the [n, len, D] bf16 tensors a wgmma kernel reads, with
+// boxes of `rows` rows; false if one cannot be encoded.
+template <int D>
+bool maps(CUtensorMap* m, const void* const* ptrs, const int* ns,
+          const int* lens, const int* rows, int count) {
+  for (int i = 0; i < count; ++i)
+    if (!hopper::map_rows(&m[i], ptrs[i], ns[i], lens[i], D, rows[i],
+                          Tiles<D>::AW))
+      return false;
+  return true;
+}
+
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int BH, int H, int Hkv, int S, int Sk,
                        int causal, int shift, float scale, cudaStream_t st) {
-  constexpr int smem = Geo<D>::FWD_SMEM;
-  cudaError_t e = prepare(flash_fwd_kernel<D>, smem);
+  constexpr int smem = FwdSmem<D>::TOTAL;
+  cudaError_t e = prepare(flash_fwd_wgmma<D>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((S + BQ - 1) / BQ, BH);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      H, Hkv, S, Sk, mask_offset(S, Sk, causal, shift), scale);
+  const int BHkv = BH / H * Hkv;
+  CUtensorMap m[3];
+  const void* ptrs[3] = {q, k, v};
+  const int ns[3] = {BH, BHkv, BHkv}, lens[3] = {S, Sk, Sk};
+  const int rows[3] = {HT, HT, HT};
+  if (!maps<D>(m, ptrs, ns, lens, rows, 3)) return cudaErrorInvalidValue;
+  dim3 grid((S + HT - 1) / HT, BH);
+  flash_fwd_wgmma<D><<<grid, HTHREADS, smem, st>>>(
+      m[0], m[1], m[2], (bf16*)o, (float*)lse, H, Hkv, S, Sk,
+      mask_offset(S, Sk, causal, shift), scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -556,23 +1012,45 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D, bool FUSED>
+template <int D>
 cudaError_t launch_kv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dk, void* dv, void* dq, int BH, int H, int Hkv,
-                      int S, int Sk, int causal, int shift, float scale,
+                      void* dk, void* dv, int BH, int H, int Hkv, int S,
+                      int Sk, int causal, int shift, float scale,
                       cudaStream_t st) {
   constexpr int smem = Geo<D>::BWD_SMEM;
-  cudaError_t e = prepare(flash_bwd_kv_kernel<D, FUSED>, smem);
+  cudaError_t e = prepare(flash_bwd_kv_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sk + BK - 1) / BK, BH);
-  flash_bwd_kv_kernel<D, FUSED><<<grid, NTHREADS, smem, st>>>(
+  flash_bwd_kv_kernel<D><<<grid, NTHREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
-      (float*)dq, H, Hkv, S, Sk, mask_offset(S, Sk, causal, shift), scale);
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Hkv,
+      S, Sk, mask_offset(S, Sk, causal, shift), scale);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_fused(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dk, void* dv, void* dq, int BH, int H, int Hkv,
+                         int S, int Sk, int causal, int shift, float scale,
+                         cudaStream_t st) {
+  constexpr int smem = BwdSmem<D>::TOTAL;
+  cudaError_t e = prepare(flash_bwd_fused_wgmma<D>, smem);
+  if (e != cudaSuccess) return e;
+  const int BHkv = BH / H * Hkv;
+  CUtensorMap m[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  const int ns[4] = {BH, BHkv, BHkv, BH}, lens[4] = {S, Sk, Sk, S};
+  const int rows[4] = {HQ_BWD, HT, HT, HQ_BWD};
+  if (!maps<D>(m, ptrs, ns, lens, rows, 4)) return cudaErrorInvalidValue;
+  dim3 grid((Sk + HT - 1) / HT, BH);
+  flash_bwd_fused_wgmma<D><<<grid, HTHREADS, smem, st>>>(
+      m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta,
+      (bf16*)dk, (bf16*)dv, (float*)dq, H, Hkv, S, Sk,
+      mask_offset(S, Sk, causal, shift), scale);
+  return cudaGetLastError();
+}
 }  // namespace
 
 // Head dims the kernels are instantiated for.
@@ -608,10 +1086,9 @@ int tft_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int BH, int H, int Hkv, int S,
                        int Sk, int D, int causal, int shift, float scale,
                        void* stream) {
-  TFT_DISPATCH_D(D, (int)(launch_kv<DD, false>(
-                        q, k, v, dout, lse, delta, dk, dv, nullptr, BH, H,
-                        Hkv, S, Sk, causal, shift, scale,
-                        (cudaStream_t)stream)))
+  TFT_DISPATCH_D(D, (int)launch_kv<DD>(q, k, v, dout, lse, delta, dk, dv,
+                                       BH, H, Hkv, S, Sk, causal, shift,
+                                       scale, (cudaStream_t)stream))
 }
 
 int tft_flash_bwd_fused(const void* q, const void* k, const void* v,
@@ -619,9 +1096,9 @@ int tft_flash_bwd_fused(const void* q, const void* k, const void* v,
                         void* dk, void* dv, void* dq, int BH, int H, int Hkv,
                         int S, int Sk, int D, int causal, int shift,
                         float scale, void* stream) {
-  TFT_DISPATCH_D(D, (int)(launch_kv<DD, true>(
-                        q, k, v, dout, lse, delta, dk, dv, dq, BH, H, Hkv, S,
-                        Sk, causal, shift, scale, (cudaStream_t)stream)))
+  TFT_DISPATCH_D(D, (int)launch_fused<DD>(q, k, v, dout, lse, delta, dk,
+                                          dv, dq, BH, H, Hkv, S, Sk, causal,
+                                          shift, scale, (cudaStream_t)stream))
 }
 
 const char* tft_error_string(int code) {

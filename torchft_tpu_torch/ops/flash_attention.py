@@ -2,8 +2,10 @@
 
 Blockwise online-softmax attention that never materializes the [S, S]
 score matrix. The four kernels are CUDA C++ for ``sm_90a``
-(``csrc/flash_attention.cu``), the port of the four Pallas kernels in
-``torchft_tpu/ops/flash_attention.py``:
+(``csrc/flash_attention.cu``, with the PTX helpers of ``csrc/hopper.cuh``),
+the port of the four Pallas kernels in ``torchft_tpu/ops/flash_attention.py``.
+The forward and the fused backward are built on Hopper's wgmma, TMA and
+warp specialisation; the split dq and dk/dv kernels on WMMA fragments:
 
 =====================  =============================================
 wrapper                replaces (TPU kernel)
@@ -49,10 +51,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-# Kernel tiles (csrc/flash_attention.cu BQ/BK). The fused/split choice
-# counts q tiles of this size.
+# The TPU version's q tile: the fused/split choice counts q tiles of this
+# size, whatever tiles the kernels use.
 BLOCK_Q = 64
-BLOCK_K = 64
 HEAD_DIMS = (32, 64, 128)
 
 # Launches per kernel since the last reset_launches(); bumped only where a
@@ -75,6 +76,18 @@ _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
 
 
+def argtypes() -> Dict[str, list]:
+    """The ctypes argument types of the library's C entry points (its
+    ``extern "C"`` block); each returns a CUDA error code as an int."""
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # BH H Hkv S Sk D causal shift scale stream
+    dims = [i32] * 6 + [i32, i32, f32, vp]
+    return {"tft_flash_fwd": [vp] * 5 + dims,
+            "tft_flash_bwd_dq": [vp] * 7 + dims,
+            "tft_flash_bwd_dkdv": [vp] * 8 + dims,
+            "tft_flash_bwd_fused": [vp] * 9 + dims}
+
+
 def _lib() -> ctypes.CDLL:
     """The kernels' shared library, built with nvcc at first use."""
     global _LIB
@@ -83,15 +96,9 @@ def _lib() -> ctypes.CDLL:
             from torchft_tpu_torch._build_util import load_cuda
 
             lib = load_cuda("flash_attention.cu")
-            vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            # BH H Hkv S Sk D causal shift scale stream
-            dims = [i32] * 6 + [i32, i32, f32, vp]
-            lib.tft_flash_fwd.argtypes = [vp] * 5 + dims
-            lib.tft_flash_bwd_dq.argtypes = [vp] * 7 + dims
-            lib.tft_flash_bwd_dkdv.argtypes = [vp] * 8 + dims
-            lib.tft_flash_bwd_fused.argtypes = [vp] * 9 + dims
-            for fn in (lib.tft_flash_fwd, lib.tft_flash_bwd_dq,
-                       lib.tft_flash_bwd_dkdv, lib.tft_flash_bwd_fused):
+            for name, types in argtypes().items():
+                fn = getattr(lib, name)
+                fn.argtypes = types
                 fn.restype = ctypes.c_int
             lib.tft_error_string.argtypes = [ctypes.c_int]
             lib.tft_error_string.restype = ctypes.c_char_p
@@ -143,6 +150,12 @@ def _check_kernel_inputs(bf16: Tuple[torch.Tensor, ...],
         if not t.is_contiguous():
             raise ValueError("flash attention kernel takes contiguous "
                              "tensors")
+    for t in bf16:
+        # TMA reads q/k/v/do from their base address, which must be
+        # 16-byte aligned.
+        if t.data_ptr() % 16:
+            raise ValueError("flash attention kernel takes 16-byte aligned "
+                             "q/k/v/do")
 
 
 def _raise_if(rc: int, name: str) -> None:
