@@ -11,7 +11,7 @@ Phases:
    ``torchft_tpu_torch/csrc``) and the C++ control-plane core (from
    ``torchft_tpu_torch/_core``), both started together; the build's
    ``-Xptxas -v`` registers and spills of every kernel are logged, and the
-   run fails if a wgmma kernel spills or if its SASS (``cuobjdump -sass``)
+   run fails if any kernel spills or if its SASS (``cuobjdump -sass``)
    lacks HGMMA or UTMALDG.
 2. **kernels** — each of the four flash-attention kernels against its
    plain PyTorch version on the same inputs, at the slice's shape and at
@@ -21,9 +21,12 @@ Phases:
    nonzero lse cotangent); times of kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick only, never called by the
    port) at the slice's shape, the shift mode at the ring's per-step shape
-   (shift = Sk, its yardstick SDPA non-causal, which returns no lse); then
-   the fused-vs-split backward check of
-   ``torchft_tpu_torch.ops.fused_bwd_check``.
+   (shift = Sk, its yardstick SDPA non-causal, which returns no lse), and
+   the split pair (dq + dk/dv) beside SDPA's whole backward; the split
+   kernels' times at the lengths where the main path launches them (the
+   split phase's shape, static, and the sp short step's, shift = Sk), by
+   events and by a CUDA graph's replay; then the fused-vs-split backward
+   check of ``torchft_tpu_torch.ops.fused_bwd_check``.
 3. **ft** — the main path: a native lighthouse and two replica groups
    (``python -m torchft_tpu_torch.train_lm``) on this one card at Llama-2-7B
    widths cut to 2 layers, batch 1 x 2048 tokens. Three steps, SIGKILL of
@@ -97,21 +100,22 @@ SP_GRAD_NORM_REL = 1e-3
 _TPU = "torchft_tpu/ops/flash_attention.py"
 KERNELS = {
     "fwd": ("flash_fwd", "flash_fwd_wgmma", f"{_TPU}:136"),
-    "bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_kernel", f"{_TPU}:344"),
-    "bwd_dkdv": ("flash_bwd_dkdv", "flash_bwd_kv_kernel", f"{_TPU}:380"),
+    "bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_wgmma", f"{_TPU}:344"),
+    "bwd_dkdv": ("flash_bwd_dkdv", "flash_bwd_dkdv_wgmma", f"{_TPU}:380"),
     "bwd_fused": ("flash_bwd_fused", "flash_bwd_fused_wgmma", f"{_TPU}:420"),
     "fwd_shift": ("flash_fwd (shift)", "flash_fwd_wgmma", f"{_TPU}:136"),
-    "bwd_dq_shift": ("flash_bwd_dq (shift)", "flash_bwd_dq_kernel",
+    "bwd_dq_shift": ("flash_bwd_dq (shift)", "flash_bwd_dq_wgmma",
                      f"{_TPU}:344"),
-    "bwd_dkdv_shift": ("flash_bwd_dkdv (shift)", "flash_bwd_kv_kernel",
+    "bwd_dkdv_shift": ("flash_bwd_dkdv (shift)", "flash_bwd_dkdv_wgmma",
                        f"{_TPU}:380"),
     "bwd_fused_shift": ("flash_bwd_fused (shift)", "flash_bwd_fused_wgmma",
                         f"{_TPU}:420"),
 }
 CSRC = os.path.join("torchft_tpu_torch", "csrc")
-# The kernels written on wgmma + TMA: their SASS must hold both, and their
-# build no spill.
-HOPPER_KERNELS = ("flash_fwd_wgmma", "flash_bwd_fused_wgmma")
+# Every CUDA kernel, all written on wgmma + TMA: their SASS must hold both,
+# and their build no spill.
+HOPPER_KERNELS = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                  "flash_bwd_dkdv_wgmma", "flash_bwd_fused_wgmma")
 # (name, B, S, Sk, H, Hkv, D, causal); the first is the slice's shape,
 # "sp_split" the sp phase's short step (S_local = 128 per rank), "d32" the
 # smallest head dim, "tile_edge" one full and one half 128-row tile.
@@ -124,7 +128,12 @@ CASES = [
     ("odd", 1, 999, 999, 8, 8, 64, True),
     ("d32", 2, 320, 320, 4, 2, 32, True),
     ("tile_edge", 1, 192, 192, 8, 8, 128, True),
+    ("split", 1, 192, 192, 32, 32, 128, True),
 ]
+# Split-kernel times at the lengths where the main path launches them:
+# case -> shift mode; "split" is the split phase's shape (static),
+# "sp_split" the sp short step's (shift = Sk).
+SHORT_TIMES = {"split": False, "sp_split": True}
 # Shift-mode cases beyond (Sk, 0, -Sk) on each case above: a partial shift
 # at which every row still sees a key, -(BQ // 2) at Sk = S + BQ.
 PARTIAL_SHIFT = ("partial", 1, 256, 320, 8, 2, 128, -32)
@@ -150,19 +159,32 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, graph: bool = False
+            ) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events.
+    With ``graph``, the calls are captured in one CUDA graph and the
+    replay is timed: the host's launch cost, which a call of a few
+    microseconds of device work would otherwise measure, drops out."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run, calls = fn, iters
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        run, calls = g.replay, iters * iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        fn()
+        run()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / calls
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -248,8 +270,9 @@ def ptxas_report(text: str) -> dict:
 
 
 def check_hopper_kernels(kernels: dict, sass: str) -> None:
-    """Fails unless every instantiation of each wgmma kernel built with no
-    spill and its SASS (``cuobjdump -sass``) holds HGMMA and UTMALDG."""
+    """Fails unless every instantiation of each kernel of
+    :data:`HOPPER_KERNELS` built with no spill and its SASS
+    (``cuobjdump -sass``) holds HGMMA and UTMALDG."""
     for kernel in HOPPER_KERNELS:
         built = {n: i for n, i in kernels.items() if kernel in n}
         check(len(built) > 0, f"ptxas reported no {kernel}")
@@ -270,7 +293,7 @@ def check_hopper_kernels(kernels: dict, sass: str) -> None:
 
 def check_build(library: str) -> dict:
     """Logs registers and spills of every kernel from the build's report,
-    then checks the wgmma kernels (:func:`check_hopper_kernels`)."""
+    then checks them (:func:`check_hopper_kernels`)."""
     with open(f"{library}.log") as f:
         kernels = ptxas_report(f.read())
     for name, info in kernels.items():
@@ -371,6 +394,25 @@ def _shift_check(rows: dict, case: str, q, k, v, do, shift: int,
     return args
 
 
+def _short_times(case: str, args: tuple, shape: tuple, shift=None) -> None:
+    """Logs the split kernels' times at a short shape: by events over
+    back-to-back calls (``kernel_ms``, which counts the host's launch cost
+    where that is the longer) and over a CUDA graph's replay
+    (``graph_ms``, the device alone)."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    b, s, sk, h, h_kv, d, causal = shape
+    for n, fn in (("bwd_dq", fa.flash_bwd_dq),
+                  ("bwd_dkdv", fa.flash_bwd_dkdv)):
+        ms = cuda_ms(lambda: fn(*args))
+        graph_ms = cuda_ms(lambda: fn(*args), graph=True)
+        bound_ms, bound_by = bounds(n, b, s, sk, h, h_kv, d, causal, shift)
+        sfx = "_shift" if shift is not None else ""
+        log(f"time[{n}{sfx} @ {case} S={s} Sk={sk}] kernel_ms={ms:.4f} "
+            f"graph_ms={graph_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"bound_share={bound_ms / graph_ms:.3f}")
+
+
 def phase_kernels() -> dict:
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import fused_bwd_check
@@ -437,6 +479,12 @@ def phase_kernels() -> dict:
         for n, e in abs_errs.items():
             row = rows.setdefault(n, {"max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], e)
+        if case in SHORT_TIMES:
+            shape = (b, s, sk, h, h_kv, d, causal)
+            if SHORT_TIMES[case]:
+                _short_times(case, shift_args[sk], shape, sk)
+            else:
+                _short_times(case, args, shape)
         if case != "slice":
             continue
         # Times at the slice's shape: kernel, plain version, library call.
@@ -502,6 +550,13 @@ def phase_kernels() -> dict:
                 f"library_ms={rows[n]['library_ms']} "
                 f"bound_ms={bound_ms:.4f} ({bound_by}) "
                 f"bound_share={bound_ms / rows[n]['ms']:.3f}")
+        # No PyTorch call returns dq alone or dk/dv alone; SDPA's backward
+        # returns all three, so the split pair stands against it.
+        for sfx in ("", "_shift"):
+            pair = rows[f"bwd_dq{sfx}"]["ms"] + rows[f"bwd_dkdv{sfx}"]["ms"]
+            sdpa = rows[f"bwd_fused{sfx}"]["library_ms"]
+            log(f"time[split_pair{sfx}] dq+dkdv_ms={pair:.4f} "
+                f"sdpa_bwd_ms={sdpa:.4f} ratio={pair / sdpa:.2f}")
         worst = fused_bwd_check.compare(q, k, v, do, causal)
         log(f"fused_bwd_check: fused vs split rel={worst:.3e}")
         check(worst <= fused_bwd_check.TOLERANCE,

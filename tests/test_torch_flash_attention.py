@@ -256,41 +256,53 @@ _PTXAS = """\
 ptxas info    : Function properties for _Z15flash_fwd_wgmmaILi128EEv
     0 bytes stack frame, {fwd_spill} bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Function properties for _Z18flash_bwd_dq_wgmmaILi128EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Function properties for _Z20flash_bwd_dkdv_wgmmaILi128EEv
+    0 bytes stack frame, {kv_stores} bytes spill stores, {kv_loads} bytes spill loads
+ptxas info    : Used {kv_regs} registers, used 1 barriers
 ptxas info    : Function properties for _Z21flash_bwd_fused_wgmmaILi128EEv
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 2 barriers
-ptxas info    : Function properties for _Z19flash_bwd_kv_kernelILi128EEv
-    0 bytes stack frame, 32 bytes spill stores, 52 bytes spill loads
-ptxas info    : Used 255 registers
 """
 _SASS = """\
 \t\tFunction : _Z15flash_fwd_wgmmaILi128EEv
         /*0100*/  UTMALDG.3D [UR8], [UR4] ;
         /*0200*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24 ;
+\t\tFunction : _Z18flash_bwd_dq_wgmmaILi128EEv
+        /*0100*/  UTMALDG.3D [UR8], [UR4] ;
+        /*0200*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;
+\t\tFunction : _Z20flash_bwd_dkdv_wgmmaILi128EEv
+        /*0100*/  UTMALDG.3D [UR8], [UR4] ;
+        /*0200*/  HGMMA.64x32x16.F32.BF16 R24, gdesc[UR12], R24 ;
 \t\tFunction : _Z21flash_bwd_fused_wgmmaILi128EEv
         /*0100*/  {bwd_load} [UR8], [UR4] ;
         /*0200*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24 ;
-\t\tFunction : _Z19flash_bwd_kv_kernelILi128EEv
-        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
 """
 
 
 def test_ptxas_report_reads_registers_and_spills():
     cs = _chip_smoke()
-    kernels = cs.ptxas_report(_PTXAS.format(fwd_spill=0))
-    assert kernels["_Z19flash_bwd_kv_kernelILi128EEv"] == {
+    kernels = cs.ptxas_report(_PTXAS.format(fwd_spill=0, kv_stores=32,
+                                            kv_loads=52, kv_regs=255))
+    assert kernels["_Z20flash_bwd_dkdv_wgmmaILi128EEv"] == {
         "spill_stores": 32, "spill_loads": 52, "registers": 255}
     assert kernels["_Z15flash_fwd_wgmmaILi128EEv"]["registers"] == 168
 
 
-@pytest.mark.parametrize("fault", [None, "spill", "no_tma", "missing"])
+@pytest.mark.parametrize("fault", [None, "spill", "no_tma", "missing",
+                                   "split_spill"])
 def test_wgmma_kernel_build_check(fault):
-    """chip_smoke's build check: a spill in a wgmma kernel, a wgmma kernel
-    whose SASS has no TMA load, or one missing from the SASS, fails the
-    run; a spill in the split kernels does not."""
+    """chip_smoke's build check: a spill in any kernel (the forward's, or
+    the split dk/dv kernel's), a kernel whose SASS has no TMA load, or one
+    missing from the SASS, fails the run."""
     cs = _chip_smoke()
+    split_spill = fault == "split_spill"
     kernels = cs.ptxas_report(_PTXAS.format(
-        fwd_spill=8 if fault == "spill" else 0))
+        fwd_spill=8 if fault == "spill" else 0,
+        kv_stores=32 if split_spill else 0, kv_loads=52 if split_spill else 0,
+        kv_regs=168))
     sass = _SASS.format(bwd_load="LDG.E" if fault == "no_tma"
                         else "UTMALDG.3D")
     if fault == "missing":
@@ -300,3 +312,25 @@ def test_wgmma_kernel_build_check(fault):
     else:
         with pytest.raises(cs.SmokeError):
             cs.check_hopper_kernels(kernels, sass)
+
+
+def test_every_cuda_kernel_is_checked_as_a_hopper_kernel():
+    """Each CUDA kernel chip_smoke reports is one whose build and SASS it
+    checks, and is a __global__ function of csrc/; no WMMA code is left
+    there."""
+    import os
+    import re
+
+    cs = _chip_smoke()
+    csrc = os.path.join(os.path.dirname(fa.__file__), os.pardir, "csrc")
+    text = ""
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name)) as f:
+            text += f.read()
+    defined = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+        text))
+    named = {kernel for _, kernel, _ in cs.KERNELS.values()}
+    assert named == set(cs.HOPPER_KERNELS)
+    assert named <= defined, named - defined
+    assert "wmma::" not in text and "<mma.h>" not in text

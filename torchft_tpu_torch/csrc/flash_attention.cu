@@ -35,17 +35,14 @@
 // The fused kernel's dq is summed across k-tile blocks with f32 atomics
 // into a zeroed [B*H, S, D] f32 buffer the caller allocates (the TPU kernel
 // used an aliased HBM read-modify-write along its sequential grid axis).
+// The dk/dv kernel is the fused kernel without its dq (one body, two
+// instantiations), so the two give bitwise equal dk and dv.
 //
-// Two generations of kernels live here:
-//   * the forward and the fused backward are written for Hopper (wgmma,
-//     TMA, warp specialisation; hopper.cuh): 128-row tiles, one producer
-//     warpgroup that keeps TMA loads in flight through a two-stage ring of
-//     shared-memory tiles, two consumer warpgroups that keep every
-//     accumulator in registers;
-//   * the split dq and dk/dv kernels are the first port's WMMA kernels:
-//     64 x 64 tiles, four warps per block, each warp owning 16 rows; at
-//     D = 128 a block holds ~110-125 KB of shared memory.
-// Every launch above 48 KB of shared memory raises
+// Every kernel is written for Hopper (wgmma, TMA, warp specialisation;
+// hopper.cuh): 128-row tiles, 384 threads a block, one producer warpgroup
+// that keeps TMA loads in flight through a two-stage ring of shared-memory
+// tiles guarded by mbarriers, and two consumer warpgroups that keep every
+// accumulator in registers. Every launch raises
 // cudaFuncAttributeMaxDynamicSharedMemorySize first.
 //
 // Kernels allocate nothing and do not synchronise. Each C entry point
@@ -53,93 +50,30 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BQ = 64;          // q rows per tile
-constexpr int BK = 64;          // k rows per tile
-constexpr int NWARPS = 4;       // each warp owns 16 rows of a tile
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDP = BK + 8;     // row stride of bf16 [*, BK] tiles
-constexpr int LDS = BK + 4;     // row stride of f32 [16, BK] score tiles
 constexpr float NEG_INF = -1e30f;  // finite, like the TPU kernel's
+constexpr int HT = 128;            // rows of the kernels' tiles
 // Diagonal offset of "no mask": q + UNMASKED >= k for every key k < 2^30,
-// and q + UNMASKED + BQ stays below 2^31 for q < 2^30 - BQ.
+// and q + UNMASKED + HT stays below 2^31 for q < 2^30 - HT.
 constexpr int UNMASKED = 1 << 30;
-
-template <int D> struct Geo {
-  static constexpr int LDH = D + 8;   // row stride of bf16 [*, D] tiles
-  static constexpr int LDO = D + 4;   // row stride of f32 [16, D] tiles
-  static constexpr int TILE_H = 64 * LDH * 2;          // bytes, bf16 64 x D
-  static constexpr int TILE_P = 64 * LDP * 2;          // bytes, bf16 64 x BK
-  static constexpr int WARP_S = 16 * LDS * 4;          // bytes, f32 16 x BK
-  static constexpr int WARP_O = 16 * LDO * 4;          // bytes, f32 16 x D
-  // Per-warp scratch of the backward: S and dP side by side; later reused
-  // for a 16 x D f32 tile (dq part, dk/dv conversion).
-  static constexpr int WARP_SCR =
-      (2 * WARP_S > WARP_O ? 2 * WARP_S : WARP_O);
-  static constexpr int BWD_SMEM =
-      4 * TILE_H + 2 * TILE_P + NWARPS * WARP_SCR + 2 * 64 * 4;
-};
-
-// Copy rows [row0, row0 + 64) of a [len, D] bf16 matrix into a padded
-// shared tile, zero-filling rows at or past len. 16 bytes per thread.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int len) {
-  constexpr int VEC = D / 8;
-  for (int i = threadIdx.x; i < 64 * VEC; i += NTHREADS) {
-    int r = i / VEC, c = i % VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < len)
-      val = reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D)[c];
-    *reinterpret_cast<uint4*>(dst + r * Geo<D>::LDH + c * 8) = val;
-  }
-}
 
 __device__ __forceinline__ int kv_row(int bh, int H, int Hkv) {
   return (bh / H) * Hkv + (bh % H) / (H / Hkv);
 }
 
-// S_w[16, BK] = A[16, D] . B[BK, D]^T for one warp (A rows at a, B rows at b,
-// both bf16 with row stride LDH), stored f32 into out (row stride LDS).
-template <int D>
-__device__ __forceinline__ void warp_abt(const bf16* a, const bf16* b,
-                                         float* out) {
-  constexpr int LDH = Geo<D>::LDH;
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, LDH);
-      wmma::load_matrix_sync(fb, b + n * 16 * LDH + kk * 16, LDH);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(out + n * 16, c, LDS, wmma::mem_row_major);
-  }
-}
-
 // Visibility of tile entry (query row q, key k): in range, and on or left
-// of the diagonal k = q + offset. TQ x TK is the tile, 64 x 64 unless a
-// kernel says otherwise.
+// of the diagonal k = q + offset. TQ x TK is the tile.
 struct Mask {
   int S, Sk, offset;
-  __device__ __forceinline__ bool visible(int q, int k) const {
-    return q < S && k < Sk && q + offset >= k;
-  }
   // Every entry of the tile at (q0, k0) visible: no element mask needed.
-  template <int TQ = BQ, int TK = BK>
+  template <int TQ, int TK>
   __device__ __forceinline__ bool full(int q0, int k0) const {
     if (q0 + TQ > S || k0 + TK > Sk) return false;
     return q0 + offset >= k0 + TK - 1;
@@ -147,7 +81,7 @@ struct Mask {
   // Key tiles that the rows of the q tile at q0 see: [0, return). A tile
   // whose rows see no key (last < 0) runs none; C division truncates
   // toward zero, so -TK < last < 0 would otherwise give 1.
-  template <int TQ = BQ, int TK = BK>
+  template <int TQ, int TK>
   __device__ __forceinline__ int key_tiles(int q0) const {
     const int last = q0 + TQ - 1 + offset;  // last key any row here sees
     const int lim = last < 0 ? 0 : last / TK + 1;
@@ -156,241 +90,14 @@ struct Mask {
   }
   // First q tile of TQ rows whose last row reaches key k0; at or past the
   // last tile when no row does (a blocking shift).
-  template <int TQ = BQ>
+  template <int TQ>
   __device__ __forceinline__ int first_q_tile(int k0) const {
     const int need = k0 - offset - (TQ - 1);
     return need > 0 ? (need + TQ - 1) / TQ : 0;
   }
 };
 
-// ----------------------------------------------------- backward, shared
-// Phase 1 of every backward kernel for one warp's 16 query rows of the
-// (q tile at q0, k tile at k0) block: recompute p = exp(s * scale - lse)
-// and ds = p * (dp - delta), as _recompute_p_ds does
-// (torchft_tpu/ops/flash_attention.py:309-341), writing both as bf16 rows
-// of the block's [64, BK] tiles (p only when sP is given).
-template <int D>
-__device__ __forceinline__ void recompute_p_ds(
-    const bf16* sQw, const bf16* sdOw, const bf16* sK, const bf16* sV,
-    const float* sLse, const float* sDelta, float* scr, bf16* sPw,
-    bf16* sdSw, const Mask& mask, int q0w, int k0, bool full, float scale) {
-  const int lane = threadIdx.x % 32;
-  float* sS = scr;
-  float* sdP = scr + 16 * LDS;
-  warp_abt<D>(sQw, sK, sS);
-  warp_abt<D>(sdOw, sV, sdP);
-  __syncwarp();
-  const int row = lane >> 1, half = lane & 1;
-  const float lse_r = sLse[row], delta_r = sDelta[row];
-#pragma unroll 8
-  for (int c = 0; c < 32; ++c) {
-    const int col = half * 32 + c;
-    float p = 0.0f;
-    if (full || mask.visible(q0w + row, k0 + col))
-      p = expf(sS[row * LDS + col] * scale - lse_r);
-    const float ds = p * (sdP[row * LDS + col] - delta_r);
-    if (sPw != nullptr) sPw[row * LDP + col] = __float2bfloat16(p);
-    sdSw[row * LDP + col] = __float2bfloat16(ds);
-  }
-}
-
-// Write a warp's f32 [16, D] accumulator fragments, times mul, as rows
-// [r0, r0 + 16) of a [len, D] output, through the warp's scratch.
-template <int D, typename T>
-__device__ __forceinline__ void store_rows(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc, float* scr,
-    T* out, int r0, int len, float mul) {
-  using G = Geo<D>;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(scr + n * 16, acc[n], G::LDO,
-                            wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = i / D, d = i % D;
-    if (r0 + r < len) {
-      const float x = scr[r * G::LDO + d] * mul;
-      if constexpr (sizeof(T) == 2)
-        out[(size_t)(r0 + r) * D + d] = __float2bfloat16(x);
-      else
-        out[(size_t)(r0 + r) * D + d] = x;
-    }
-  }
-  __syncwarp();
-}
-
-// -------------------------------------------------------------- backward dq
-// Replaces _bwd_dq_kernel (torchft_tpu/ops/flash_attention.py:344-377),
-// grid (q tiles, B*H): dq = sum over k tiles of ds . k * scale, kept in
-// register fragments across the k loop and written in f32 (the caller
-// casts to the input dtype, as the TPU kernel's output block did). Bound
-// by the tensor cores at the slice's shapes (3 matmuls per block,
-// recompute included).
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int H, int Hkv, int S, int Sk, int offset, float scale) {
-  using G = Geo<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + G::TILE_H);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * G::TILE_H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * G::TILE_H);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * G::TILE_H + G::TILE_P);
-  const int warp = threadIdx.x / 32;
-  float* scr = reinterpret_cast<float*>(smem + 4 * G::TILE_H +
-                                        2 * G::TILE_P + warp * G::WARP_SCR);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * G::TILE_H +
-                                         2 * G::TILE_P +
-                                         NWARPS * G::WARP_SCR);
-  float* sDelta = sLse + 64;
-
-  const int qi = blockIdx.x, bh = blockIdx.y;
-  const int q0 = qi * BQ;
-  const Mask mask{S, Sk, offset};
-  const int kvr = kv_row(bh, H, Hkv);
-  const bf16* kb = k + (size_t)kvr * Sk * D;
-  const bf16* vb = v + (size_t)kvr * Sk * D;
-
-  load_tile<D>(sQ, q + (size_t)bh * S * D, q0, S);
-  load_tile<D>(sdO, dout + (size_t)bh * S * D, q0, S);
-  for (int i = threadIdx.x; i < 64; i += NTHREADS) {
-    const bool ok = q0 + i < S;
-    sLse[i] = ok ? lse[(size_t)bh * S + q0 + i] : 0.0f;
-    sDelta[i] = ok ? delta[(size_t)bh * S + q0 + i] : 0.0f;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-
-  const int nkb = mask.key_tiles(q0);
-  bf16* sdSw = sdS + warp * 16 * LDP;
-  for (int kj = 0; kj < nkb; ++kj) {
-    const int k0 = kj * BK;
-    __syncthreads();
-    load_tile<D>(sK, kb, k0, Sk);
-    load_tile<D>(sV, vb, k0, Sk);
-    __syncthreads();
-    recompute_p_ds<D>(sQ + warp * 16 * G::LDH, sdO + warp * 16 * G::LDH, sK,
-                      sV, sLse + warp * 16, sDelta + warp * 16, scr, nullptr,
-                      sdSw, mask, q0 + warp * 16, k0, mask.full(q0, k0),
-                      scale);
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sdSw + kk * 16, LDP);
-        wmma::load_matrix_sync(fb, sK + kk * 16 * G::LDH + n * 16, G::LDH);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-    }
-  }
-  store_rows<D>(acc, scr, dq + (size_t)bh * S * D, q0 + warp * 16, S,
-                scale);
-}
-
-// ------------------------------------------------------ backward dk/dv
-// Replaces _bwd_dkdv_kernel (torchft_tpu/ops/flash_attention.py:380-417),
-// grid (k tiles, B*H). Per q tile: phase 1 recomputes p and ds for the
-// 64 x 64 block (warps own query rows), phase 2 accumulates
-// dv += p^T . do and dk += ds^T . q in register fragments (warps own key
-// rows). dk/dv are written per QUERY head; the caller sums the heads that
-// share a kv head, as kv_from_bh does. Bound by the tensor cores at the
-// slice's shapes.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int H, int Hkv, int S, int Sk,
-                    int offset, float scale) {
-  using G = Geo<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + G::TILE_H);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * G::TILE_H);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * G::TILE_H);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 4 * G::TILE_H);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * G::TILE_H + G::TILE_P);
-  const int warp = threadIdx.x / 32;
-  float* scr = reinterpret_cast<float*>(smem + 4 * G::TILE_H +
-                                        2 * G::TILE_P + warp * G::WARP_SCR);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * G::TILE_H +
-                                         2 * G::TILE_P +
-                                         NWARPS * G::WARP_SCR);
-  float* sDelta = sLse + 64;
-
-  const int kj = blockIdx.x, bh = blockIdx.y;
-  const int k0 = kj * BK;
-  const Mask mask{S, Sk, offset};
-  const int kvr = kv_row(bh, H, Hkv);
-  load_tile<D>(sK, k + (size_t)kvr * Sk * D, k0, Sk);
-  load_tile<D>(sV, v + (size_t)kvr * Sk * D, k0, Sk);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[D / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dv_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.0f);
-    wmma::fill_fragment(dv_acc[n], 0.0f);
-  }
-
-  const int nqb = (S + BQ - 1) / BQ;
-  // At or past nqb when no row reaches this tile (a blocking shift):
-  // dk/dv stay zero.
-  const int qi_start = mask.first_q_tile(k0);
-  const bf16* qb = q + (size_t)bh * S * D;
-  const bf16* dob = dout + (size_t)bh * S * D;
-  for (int qi = qi_start; qi < nqb; ++qi) {
-    const int q0 = qi * BQ;
-    __syncthreads();
-    load_tile<D>(sQ, qb, q0, S);
-    load_tile<D>(sdO, dob, q0, S);
-    for (int i = threadIdx.x; i < 64; i += NTHREADS) {
-      const bool ok = q0 + i < S;
-      sLse[i] = ok ? lse[(size_t)bh * S + q0 + i] : 0.0f;
-      sDelta[i] = ok ? delta[(size_t)bh * S + q0 + i] : 0.0f;
-    }
-    __syncthreads();
-    recompute_p_ds<D>(sQ + warp * 16 * G::LDH, sdO + warp * 16 * G::LDH, sK,
-                      sV, sLse + warp * 16, sDelta + warp * 16, scr,
-                      sP + warp * 16 * LDP, sdS + warp * 16 * LDP, mask,
-                      q0 + warp * 16, k0, mask.full(q0, k0), scale);
-    __syncthreads();
-    // Phase 2: this warp's 16 key rows; contraction over the 64 q rows.
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + kk * 16 * LDP + warp * 16, LDP);
-        wmma::load_matrix_sync(fb, sdO + kk * 16 * G::LDH + n * 16, G::LDH);
-        wmma::mma_sync(dv_acc[n], fa, fb, dv_acc[n]);
-        wmma::load_matrix_sync(fa, sdS + kk * 16 * LDP + warp * 16, LDP);
-        wmma::load_matrix_sync(fb, sQ + kk * 16 * G::LDH + n * 16, G::LDH);
-        wmma::mma_sync(dk_acc[n], fa, fb, dk_acc[n]);
-      }
-    }
-  }
-  __syncthreads();
-  store_rows<D>(dk_acc, scr, dk + (size_t)bh * Sk * D, k0 + warp * 16, Sk,
-                scale);
-  store_rows<D>(dv_acc, scr, dv + (size_t)bh * Sk * D, k0 + warp * 16, Sk,
-                1.0f);
-}
-
-// ------------------------------------------------------- Hopper kernels
-// Geometry of the wgmma kernels' shared-memory tiles at head dim D: rows
+// Geometry of the kernels' shared-memory tiles at head dim D: rows
 // of D bf16 cut into D / AW swizzle atoms of AW columns (hopper.cuh).
 template <int D> struct Tiles {
   static constexpr int AW = D < 64 ? D : 64;  // atom width, bf16 columns
@@ -402,8 +109,7 @@ template <int D> struct Tiles {
   static constexpr int bytes(int rows) { return rows * D * 2; }
 };
 
-constexpr int HT = 128;                // rows of the wgmma kernels' tiles
-constexpr int HQ_BWD = 64;             // q rows per step of the fused backward
+constexpr int HQ_BWD = 64;             // q rows per step of the dk/dv loop
 constexpr int HQ_HALF = 32;            // q rows per half step of its consumers
 constexpr int NCONSUMERS = 2;          // consumer warpgroups, 64 rows each
 constexpr int HTHREADS = 128 * (1 + NCONSUMERS);
@@ -476,6 +182,33 @@ __device__ __forceinline__ void acc_to_a(const float* acc, int kk,
   a[3] = hopper::pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
+// The producer's loop of the forward and dq kernels, on one thread: K/V
+// tiles [0, nkt) of HT keys of K/V row kvr by TMA into the two-stage ring
+// at `stages` (stage s: K, then V, `tile` bytes each), each stage refilled
+// once the consumers have released it. Rolled, addresses made per step: the
+// producer has 24 registers.
+template <int D>
+__device__ __forceinline__ void load_kv_ring(
+    unsigned char* stages, int tile, const CUtensorMap* tm_k,
+    const CUtensorMap* tm_v, uint64_t* full, uint64_t* empty, int nkt,
+    int kvr) {
+  using T = Tiles<D>;
+#pragma unroll 1
+  for (int t = 0; t < nkt; ++t) {
+    const int s = hopper::opaque(t & 1);
+    unsigned char* sK = stages + s * 2 * tile;
+    unsigned char* sV = sK + tile;
+    hopper::mbar_wait(&empty[s], ((t >> 1) & 1) ^ 1);
+    hopper::mbar_expect_tx(&full[s], 2 * tile);
+    for (int a = 0; a < T::NA; ++a) {
+      hopper::tma_load_3d(sK + a * HT * T::SW, tm_k, &full[s], a * T::AW,
+                          t * HT, kvr);
+      hopper::tma_load_3d(sV + a * HT * T::SW, tm_v, &full[s], a * T::AW,
+                          t * HT, kvr);
+    }
+  }
+}
+
 // Shared memory of the forward: Q tile, then two stages of K and V, then
 // the barriers; plus slack to align the base to 1024 bytes.
 template <int D> struct FwdSmem {
@@ -540,20 +273,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int a = 0; a < T::NA; ++a)
         hopper::tma_load_3d(sQ + a * HT * T::SW, &tm_q, qbar, a * T::AW, q0,
                             bh);
-#pragma unroll 1
-      for (int t = 0; t < nkt; ++t) {
-        const int s = hopper::opaque(t & 1);
-        unsigned char* sK = smem + L::Q + s * 2 * L::KV;
-        unsigned char* sV = sK + L::KV;
-        hopper::mbar_wait(&empty[s], ((t >> 1) & 1) ^ 1);
-        hopper::mbar_expect_tx(&full[s], 2 * L::KV);
-        for (int a = 0; a < T::NA; ++a) {
-          hopper::tma_load_3d(sK + a * HT * T::SW, &tm_k, &full[s],
-                              a * T::AW, t * HT, kvr);
-          hopper::tma_load_3d(sV + a * HT * T::SW, &tm_v, &full[s],
-                              a * T::AW, t * HT, kvr);
-        }
-      }
+      load_kv_ring<D>(smem + L::Q, L::KV, &tm_k, &tm_v, full, empty, nkt,
+                      kvr);
     }
   } else {
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
@@ -662,12 +383,180 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// Shared memory of the fused backward: K and V tiles of 128 keys, two
+// Shared memory of the dq kernel: the Q and dO tiles, then two stages of
+// K and V tiles, then the barriers; plus slack for 1024-byte alignment.
+template <int D> struct DqSmem {
+  static constexpr int TILE = Tiles<D>::bytes(HT);
+  static constexpr int STAGE0 = 2 * TILE;  // stage s: K, V
+  static constexpr int BARS = STAGE0 + 4 * TILE;
+  static constexpr int TOTAL = BARS + 64 + 1024;
+};
+
+// ------------------------------------------------------------ backward dq
+// Replaces _bwd_dq_kernel (torchft_tpu/ops/flash_attention.py:344-377),
+// grid (q tiles of 128 rows, B*H), heaviest causal tile first: dq = sum
+// over k tiles of ds . k * scale, written once in f32 (the caller casts to
+// the input dtype, as the TPU kernel's output block did); one block owns
+// its q tile, so no atomics. Bound by the tensor cores at the slice's
+// shapes (3 matmuls per visible entry, recompute included). Warpgroup 0
+// is the producer: one thread loads the Q and dO tiles once and K/V tiles
+// of 128 keys through a two-stage ring by TMA. Warpgroups 1 and 2 each own
+// 64 query rows and keep their lse, delta and dQ in registers over the
+// whole k loop; per k tile, S = Q K^T and dP = dO V^T by wgmma from
+// shared memory into registers, p = exp(s scale - lse) and ds = p (dp -
+// delta) on the accumulator layout (the fused kernel's formula, so that
+// the two round alike), ds packed to bf16 in registers as wgmma's A
+// operand for dQ += dS K (K read MN-major, as the forward reads V).
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int H, int Hkv, int S, int Sk, int offset, float scale) {
+  using T = Tiles<D>;
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // Offset from the __shared__ array (not a round trip through an
+  // integer) keeps every tile pointer a 32-bit shared address.
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sdO = smem + L::TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = bars;       // [2] K/V stage loaded
+  uint64_t* empty = bars + 2;  // [2] K/V stage released
+  uint64_t* qbar = bars + 4;   // Q and dO loaded
+
+  const int nqt = (S + HT - 1) / HT;
+  const int q0 = (nqt - 1 - (int)blockIdx.x) * HT;
+  const int bh = blockIdx.y;
+  const Mask mask{S, Sk, offset};
+  const int nkt = mask.key_tiles<HT, HT>(q0);
+  const int wg = warpgroup();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128 * NCONSUMERS);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0 && nkt > 0) {
+      const int kvr = kv_row(bh, H, Hkv);
+      hopper::mbar_expect_tx(qbar, 2 * L::TILE);
+      for (int a = 0; a < T::NA; ++a) {
+        hopper::tma_load_3d(sQ + a * HT * T::SW, &tm_q, qbar, a * T::AW, q0,
+                            bh);
+        hopper::tma_load_3d(sdO + a * HT * T::SW, &tm_do, qbar, a * T::AW,
+                            q0, bh);
+      }
+      load_kv_ring<D>(smem + L::STAGE0, L::TILE, &tm_k, &tm_v, full, empty,
+                      nkt, kvr);
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;                     // rows [64 c, 64 c + 64)
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int qc0 = q0 + 64 * c;              // this consumer's first row
+    const int rows[2] = {qc0 + 16 * w + lane / 4, qc0 + 16 * w + lane / 4 + 8};
+    const int col = 2 * (lane % 4);           // first column in a chunk
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool ok = rows[i] < S;
+      lse_r[i] = ok ? lse[(size_t)bh * S + rows[i]] : 0.0f;
+      delta_r[i] = ok ? delta[(size_t)bh * S + rows[i]] : 0.0f;
+    }
+    float qacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) qacc[i] = 0.0f;
+
+    if (nkt > 0) hopper::mbar_wait(qbar, 0);
+    const uint64_t q_desc = kmajor<D>(sQ, 64 * c);
+    const uint64_t do_desc = kmajor<D>(sdO, 64 * c);
+    for (int t = 0; t < nkt; ++t) {
+      const int s = t & 1;
+      const unsigned char* sK = smem + L::STAGE0 + s * 2 * L::TILE;
+      const unsigned char* sV = sK + L::TILE;
+      hopper::mbar_wait(&full[s], (t >> 1) & 1);
+      const int k0 = t * HT;
+      float sacc[HT / 2], pacc[HT / 2];
+      const uint64_t k_desc = kmajor<D>(sK, 0);
+      const uint64_t v_desc = kmajor<D>(sV, 0);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::Wgmma<HT>::ss<0, 0>(sacc, q_desc + kstep<D>(HT, kk),
+                                    k_desc + kstep<D>(HT, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::Wgmma<HT>::ss<0, 0>(pacc, do_desc + kstep<D>(HT, kk),
+                                    v_desc + kstep<D>(HT, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<HT / 2>(sacc);
+      hopper::fence_regs<HT / 2>(pacc);
+
+      // Column 8 j + e' (e' = e & 1) of row i is visible iff 8 j + e' <=
+      // lim[i], as in the forward; ds overwrites dp in place.
+      const bool all = mask.full<64, HT>(qc0, k0);
+      const int cx = hopper::opaque(col);
+      int lim[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        lim[i] = rows[i] < S ? min(rows[i] + offset, Sk - 1) - k0 - cx : -1;
+#pragma unroll
+      for (int j = 0; j < HT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool vis = all || 8 * j + (e & 1) <= lim[e >> 1];
+          const float p =
+              vis ? expf(sacc[4 * j + e] * scale - lse_r[e >> 1]) : 0.0f;
+          pacc[4 * j + e] = p * (pacc[4 * j + e] - delta_r[e >> 1]);
+        }
+      uint32_t da[HT / 4];
+#pragma unroll
+      for (int kk = 0; kk < HT / 16; ++kk) acc_to_a(pacc, kk, da + 4 * kk);
+
+      const uint64_t k_mn = mnmajor<D>(sK, HT, 0);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HT / 16; ++kk)
+        hopper::Wgmma<D>::template rs<1>(qacc, da + 4 * kk,
+                                         k_mn + mnstep<D>(kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<D / 2>(qacc);
+      // K and V of this stage are read.
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (rows[i] >= S) continue;
+      float* dqrow = dq + ((size_t)bh * S + rows[i]) * D + col;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dqrow + 8 * j) = make_float2(
+            qacc[4 * j + 2 * i] * scale, qacc[4 * j + 2 * i + 1] * scale);
+    }
+  }
+}
+
+// Shared memory of the dk/dv loop: K and V tiles of 128 keys, with dq two
 // dS^T tiles [128 keys, 64 q], two stages of Q and dO tiles of 64 rows and
 // their lse / delta, then the barriers; plus slack for 1024-byte alignment.
-template <int D> struct BwdSmem {
+template <int D, bool WITH_DQ> struct BwdSmem {
   static constexpr int KV = Tiles<D>::bytes(HT);
-  static constexpr int DS = HT * HQ_BWD * 2;
+  static constexpr int DS = WITH_DQ ? HT * HQ_BWD * 2 : 0;
   static constexpr int QD = Tiles<D>::bytes(HQ_BWD);
   static constexpr int STAGE0 = 2 * KV + 2 * DS;  // stage s: Q, dO
   static constexpr int STATS = STAGE0 + 4 * QD;   // [2][lse 64, delta 64]
@@ -675,32 +564,30 @@ template <int D> struct BwdSmem {
   static constexpr int TOTAL = BARS + 64 + 1024;
 };
 
-// ------------------------------------------------ fused backward (wgmma)
-// Replaces _bwd_fused_kernel (torchft_tpu/ops/flash_attention.py:420-483),
-// grid (k tiles of 128 keys, B*H). Bound by the tensor cores at the
-// slice's shape (5 matmuls per visible entry). K and V stay in shared
-// memory after one TMA load each; warpgroup 0 is the producer: one thread
-// streams Q and dO tiles of 64 rows by TMA through a two-stage ring, one
-// warp loads their lse / delta. Warpgroups 1 and 2 each own 64 keys and
-// take a q tile in two halves of 32 rows: S^T = K Q^T and dP^T = V dO^T by
-// wgmma into registers, P^T and dS^T in registers, dV += P^T dO and
-// dK += dS^T Q with A from registers (dK, dV stay in registers over the
-// whole q loop). dS^T also goes to shared memory once, and dQ = dS K is
-// one wgmma product over all 128 keys and 64 q rows, each
-// consumer taking one 64-column atom of D (consumer 0 alone below
-// D = 128), added to the f32 dq buffer by vector atomics.
-template <int D>
-__global__ void __launch_bounds__(HTHREADS, 1)
-flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
-                      const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v,
-                      const __grid_constant__ CUtensorMap tm_do,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, float* __restrict__ dq, int H,
-                      int Hkv, int S, int Sk, int offset, float scale) {
+// ------------------------------------------- dk/dv and fused backward
+// The body of two kernels, grid (k tiles of 128 keys, B*H): with WITH_DQ
+// the fused backward, without it the split dk/dv kernel. Bound by the
+// tensor cores at the slice's shape (5 matmuls per visible entry with dq,
+// 4 without). K and V stay in shared memory after one TMA load each;
+// warpgroup 0 is the producer: one thread streams Q and dO tiles of 64
+// rows by TMA through a two-stage ring, one warp loads their lse / delta.
+// Warpgroups 1 and 2 each own 64 keys and take a q tile in two halves of
+// 32 rows: S^T = K Q^T and dP^T = V dO^T by wgmma into registers, P^T and
+// dS^T in registers, dV += P^T dO and dK += dS^T Q with A from registers
+// (dK, dV stay in registers over the whole q loop). With WITH_DQ, dS^T
+// also goes to shared memory once, and dQ = dS K is one wgmma product over
+// all 128 keys and 64 q rows, each consumer taking one 64-column atom of D
+// (consumer 0 alone below D = 128), added to the f32 dq buffer by vector
+// atomics.
+template <int D, bool WITH_DQ>
+__device__ __forceinline__ void bwd_kv_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, float* __restrict__ dq, int H, int Hkv, int S,
+    int Sk, int offset, float scale) {
   using T = Tiles<D>;
-  using L = BwdSmem<D>;
+  using L = BwdSmem<D, WITH_DQ>;
   extern __shared__ unsigned char smem_raw[];
   // Offset from the __shared__ array (not a round trip through an
   // integer) keeps every tile pointer a 32-bit shared address.
@@ -739,9 +626,9 @@ flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const int kvr = kv_row(bh, H, Hkv);
       hopper::mbar_expect_tx(kvbar, 2 * L::KV);
       for (int a = 0; a < T::NA; ++a) {
-        hopper::tma_load_3d(sK + a * HT * T::SW, &tm_k, kvbar, a * T::AW, k0,
+        hopper::tma_load_3d(sK + a * HT * T::SW, tm_k, kvbar, a * T::AW, k0,
                             kvr);
-        hopper::tma_load_3d(sV + a * HT * T::SW, &tm_v, kvbar, a * T::AW, k0,
+        hopper::tma_load_3d(sV + a * HT * T::SW, tm_v, kvbar, a * T::AW, k0,
                             kvr);
       }
       // One thread, 24 registers: a rolled loop, addresses made per step.
@@ -753,9 +640,9 @@ flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
         hopper::mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
         hopper::mbar_expect_tx(&full[s], 2 * L::QD);
         for (int a = 0; a < T::NA; ++a) {
-          hopper::tma_load_3d(sQ + a * HQ_BWD * T::SW, &tm_q, &full[s],
+          hopper::tma_load_3d(sQ + a * HQ_BWD * T::SW, tm_q, &full[s],
                               a * T::AW, q0, bh);
-          hopper::tma_load_3d(sdO + a * HQ_BWD * T::SW, &tm_do, &full[s],
+          hopper::tma_load_3d(sdO + a * HQ_BWD * T::SW, tm_do, &full[s],
                               a * T::AW, q0, bh);
         }
       }
@@ -831,8 +718,8 @@ flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
         hopper::fence_regs<HQ_HALF / 2>(sacc);
         // Rows of S^T are keys, columns q rows: column q0 + cx + qc of
         // key row i is visible iff lo[i] <= qc < hi. p and ds follow the
-        // split kernels' recompute_p_ds formula for formula (expf on the
-        // natural-log lse), so that fused and split round alike.
+        // dq kernel's formula (expf on the natural-log lse), so that the
+        // fused and the split dq round alike.
 #pragma unroll
         for (int j = 0; j < HQ_HALF / 8; ++j)
 #pragma unroll
@@ -873,13 +760,16 @@ flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
         // lie in chunk jj = h * HQ_HALF / 8 + j, and its (row i, columns
         // col, col + 1) pair is register da[4 (j / 2) + 2 (j % 2) + i]
         // (acc_to_a's order).
+        if constexpr (WITH_DQ) {
 #pragma unroll
-        for (int j = 0; j < HQ_HALF / 8; ++j)
+          for (int j = 0; j < HQ_HALF / 8; ++j)
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            *reinterpret_cast<uint32_t*>(
-                ds_row + i * 8 * 128 + (((h * HQ_HALF / 8 + j) ^ swz) << 4)) =
-                da[4 * (j / 2) + 2 * (j % 2) + i];
+            for (int i = 0; i < 2; ++i)
+              *reinterpret_cast<uint32_t*>(
+                  ds_row + i * 8 * 128 +
+                  (((h * HQ_HALF / 8 + j) ^ swz) << 4)) =
+                  da[4 * (j / 2) + 2 * (j % 2) + i];
+        }
 
         hopper::wgmma_fence();
 #pragma unroll
@@ -895,40 +785,42 @@ flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
         hopper::fence_regs<D / 2>(dvacc);
         hopper::fence_regs<D / 2>(dkacc);
       }
-      hopper::fence_async_smem();
+      if constexpr (WITH_DQ) hopper::fence_async_smem();
       // Q, dO, lse and delta of this stage are read.
       hopper::mbar_arrive(&empty[s]);
-      // Both consumers' rows of dS^T are written.
-      hopper::named_barrier(CONSUMER_BAR, 128 * NCONSUMERS);
-      // dQ: consumer c takes atom c of D's columns; below D = 128 there is
-      // one atom and consumer 0 takes it.
-      const bool does_dq = c < T::NA;
-      float qacc[T::AW / 2];
-      if (does_dq) {
-        // dS^T rows are 128 bytes (64 q), whatever D.
-        const uint64_t ds_desc = hopper::desc(dsT, HT * 128, 1024, 128);
-        const uint64_t k_mn = mnmajor<D>(sK, HT, c);
-        hopper::wgmma_fence();
+      if constexpr (WITH_DQ) {
+        // Both consumers' rows of dS^T are written.
+        hopper::named_barrier(CONSUMER_BAR, 128 * NCONSUMERS);
+        // dQ: consumer c takes atom c of D's columns; below D = 128 there is
+        // one atom and consumer 0 takes it.
+        const bool does_dq = c < T::NA;
+        float qacc[T::AW / 2];
+        if (does_dq) {
+          // dS^T rows are 128 bytes (64 q), whatever D.
+          const uint64_t ds_desc = hopper::desc(dsT, HT * 128, 1024, 128);
+          const uint64_t k_mn = mnmajor<D>(sK, HT, c);
+          hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HT / 16; ++kk)
-          hopper::Wgmma<T::AW>::template ss<1, 1>(
-              qacc, ds_desc + ((kk * 16 * 128) >> 4), k_mn + mnstep<D>(kk),
-              kk > 0);
-        hopper::wgmma_commit();
-      }
-      hopper::wgmma_wait<0>();
-      if (does_dq) {
-        hopper::fence_regs<T::AW / 2>(qacc);
+          for (int kk = 0; kk < HT / 16; ++kk)
+            hopper::Wgmma<T::AW>::template ss<1, 1>(
+                qacc, ds_desc + ((kk * 16 * 128) >> 4), k_mn + mnstep<D>(kk),
+                kk > 0);
+          hopper::wgmma_commit();
+        }
+        hopper::wgmma_wait<0>();
+        if (does_dq) {
+          hopper::fence_regs<T::AW / 2>(qacc);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int q = q0 + 16 * w + lane / 4 + 8 * i;
-          if (q >= S) continue;
-          float* dqrow = dq + ((size_t)bh * S + q) * D + c * T::AW + cx;
+          for (int i = 0; i < 2; ++i) {
+            const int q = q0 + 16 * w + lane / 4 + 8 * i;
+            if (q >= S) continue;
+            float* dqrow = dq + ((size_t)bh * S + q) * D + c * T::AW + cx;
 #pragma unroll
-          for (int j = 0; j < T::AW / 8; ++j)
-            atomicAdd(reinterpret_cast<float2*>(dqrow + 8 * j),
-                      make_float2(qacc[4 * j + 2 * i] * scale,
-                                  qacc[4 * j + 2 * i + 1] * scale));
+            for (int j = 0; j < T::AW / 8; ++j)
+              atomicAdd(reinterpret_cast<float2*>(dqrow + 8 * j),
+                        make_float2(qacc[4 * j + 2 * i] * scale,
+                                    qacc[4 * j + 2 * i + 1] * scale));
+          }
         }
       }
     }
@@ -949,6 +841,40 @@ flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
+}
+
+// ------------------------------------------------ fused backward (wgmma)
+// Replaces _bwd_fused_kernel (torchft_tpu/ops/flash_attention.py:420-483).
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 1)
+flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, float* __restrict__ dq, int H,
+                      int Hkv, int S, int Sk, int offset, float scale) {
+  bwd_kv_body<D, true>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, dq,
+                       H, Hkv, S, Sk, offset, scale);
+}
+
+// ----------------------------------------------------- backward dk/dv
+// Replaces _bwd_dkdv_kernel (torchft_tpu/ops/flash_attention.py:380-417):
+// the fused kernel's body without dq. dk/dv are written per QUERY head;
+// the caller sums the heads that share a kv head, as kv_from_bh does.
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int Hkv, int S, int Sk,
+                     int offset, float scale) {
+  bwd_kv_body<D, false>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv,
+                        nullptr, H, Hkv, S, Sk, offset, scale);
 }
 
 // The kernels' mask: the diagonal offset of the end-aligned causal mask
@@ -996,19 +922,34 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// TMA maps of q, k, v and do for a backward kernel: boxes of `qrows` rows
+// for q and do, of HT for k and v.
+template <int D>
+bool bwd_maps(CUtensorMap* m, const void* q, const void* k, const void* v,
+              const void* dout, int BH, int H, int Hkv, int S, int Sk,
+              int qrows) {
+  const int BHkv = BH / H * Hkv;
+  const void* ptrs[4] = {q, k, v, dout};
+  const int ns[4] = {BH, BHkv, BHkv, BH}, lens[4] = {S, Sk, Sk, S};
+  const int rows[4] = {qrows, HT, HT, qrows};
+  return maps<D>(m, ptrs, ns, lens, rows, 4);
+}
+
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int BH, int H, int Hkv, int S, int Sk,
                       int causal, int shift, float scale, cudaStream_t st) {
-  constexpr int smem = Geo<D>::BWD_SMEM;
-  cudaError_t e = prepare(flash_bwd_dq_kernel<D>, smem);
+  constexpr int smem = DqSmem<D>::TOTAL;
+  cudaError_t e = prepare(flash_bwd_dq_wgmma<D>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((S + BQ - 1) / BQ, BH);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (float*)dq, H, Hkv, S, Sk,
-      mask_offset(S, Sk, causal, shift), scale);
+  CUtensorMap m[4];
+  if (!bwd_maps<D>(m, q, k, v, dout, BH, H, Hkv, S, Sk, HT))
+    return cudaErrorInvalidValue;
+  dim3 grid((S + HT - 1) / HT, BH);
+  flash_bwd_dq_wgmma<D><<<grid, HTHREADS, smem, st>>>(
+      m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta,
+      (float*)dq, H, Hkv, S, Sk, mask_offset(S, Sk, causal, shift), scale);
   return cudaGetLastError();
 }
 
@@ -1018,14 +959,17 @@ cudaError_t launch_kv(const void* q, const void* k, const void* v,
                       void* dk, void* dv, int BH, int H, int Hkv, int S,
                       int Sk, int causal, int shift, float scale,
                       cudaStream_t st) {
-  constexpr int smem = Geo<D>::BWD_SMEM;
-  cudaError_t e = prepare(flash_bwd_kv_kernel<D>, smem);
+  constexpr int smem = BwdSmem<D, false>::TOTAL;
+  cudaError_t e = prepare(flash_bwd_dkdv_wgmma<D>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sk + BK - 1) / BK, BH);
-  flash_bwd_kv_kernel<D><<<grid, NTHREADS, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Hkv,
-      S, Sk, mask_offset(S, Sk, causal, shift), scale);
+  CUtensorMap m[4];
+  if (!bwd_maps<D>(m, q, k, v, dout, BH, H, Hkv, S, Sk, HQ_BWD))
+    return cudaErrorInvalidValue;
+  dim3 grid((Sk + HT - 1) / HT, BH);
+  flash_bwd_dkdv_wgmma<D><<<grid, HTHREADS, smem, st>>>(
+      m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta,
+      (bf16*)dk, (bf16*)dv, H, Hkv, S, Sk, mask_offset(S, Sk, causal, shift),
+      scale);
   return cudaGetLastError();
 }
 
@@ -1035,15 +979,12 @@ cudaError_t launch_fused(const void* q, const void* k, const void* v,
                          void* dk, void* dv, void* dq, int BH, int H, int Hkv,
                          int S, int Sk, int causal, int shift, float scale,
                          cudaStream_t st) {
-  constexpr int smem = BwdSmem<D>::TOTAL;
+  constexpr int smem = BwdSmem<D, true>::TOTAL;
   cudaError_t e = prepare(flash_bwd_fused_wgmma<D>, smem);
   if (e != cudaSuccess) return e;
-  const int BHkv = BH / H * Hkv;
   CUtensorMap m[4];
-  const void* ptrs[4] = {q, k, v, dout};
-  const int ns[4] = {BH, BHkv, BHkv, BH}, lens[4] = {S, Sk, Sk, S};
-  const int rows[4] = {HQ_BWD, HT, HT, HQ_BWD};
-  if (!maps<D>(m, ptrs, ns, lens, rows, 4)) return cudaErrorInvalidValue;
+  if (!bwd_maps<D>(m, q, k, v, dout, BH, H, Hkv, S, Sk, HQ_BWD))
+    return cudaErrorInvalidValue;
   dim3 grid((Sk + HT - 1) / HT, BH);
   flash_bwd_fused_wgmma<D><<<grid, HTHREADS, smem, st>>>(
       m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta,

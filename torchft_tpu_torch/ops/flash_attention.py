@@ -4,8 +4,8 @@ Blockwise online-softmax attention that never materializes the [S, S]
 score matrix. The four kernels are CUDA C++ for ``sm_90a``
 (``csrc/flash_attention.cu``, with the PTX helpers of ``csrc/hopper.cuh``),
 the port of the four Pallas kernels in ``torchft_tpu/ops/flash_attention.py``.
-The forward and the fused backward are built on Hopper's wgmma, TMA and
-warp specialisation; the split dq and dk/dv kernels on WMMA fragments:
+All four are built on Hopper's wgmma, TMA and warp specialisation; the
+dk/dv kernel is the fused kernel's body without its dq:
 
 =====================  =============================================
 wrapper                replaces (TPU kernel)

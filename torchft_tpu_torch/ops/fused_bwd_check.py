@@ -1,10 +1,13 @@
 """Hardware check of the fused flash-attention backward against the split.
 
 The fused kernel sums dq across k-tile blocks with f32 atomics; the split
-path sums it inside one block per q tile. Both run the same recompute, so
-on a correct card dk/dv agree bit for bit and dq to f32 reordering noise. A
-race or a lost tile corrupts dq by whole tiles (relative error of order 1),
-which this check turns into a failure.
+dq kernel sums it inside the one block that owns each q tile. Both
+recompute p and ds by the same formula, so on a correct card dq agrees to
+f32 reordering noise, and that is what this check proves: a race or a lost
+tile in the atomic sum corrupts dq by whole tiles (relative error of order
+1), which it turns into a failure. dk and dv agree bit for bit by
+construction (the split dk/dv kernel is the fused kernel's body without
+its dq); they are compared all the same.
 
 Exit codes: 0 = match, 75 = no GPU (skip), 1 = MISMATCH (set
 ``TORCHFT_FLASH_FUSED_BWD=0`` operationally until fixed).
