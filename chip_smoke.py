@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                     # every phase, one card
     python3 chip_smoke.py --phases kernels,sp # a subset of
-                                              # card,kernels,ft,split,sp
+                                              # card,kernels,ft,split,sp,wire
 
 Phases:
 
@@ -48,6 +48,23 @@ Phases:
    sequence with the static kernels, and the ring-attention layer's output
    and gradients against static ``flash_attention`` on the same
    4096-token inputs.
+6. **wire** — the manager's wire rungs: a lighthouse and two replica
+   groups on this card (``chip_smoke.py --wire-worker``); each builds the
+   same Llama-2-7B-width 2-layer model with the flash kernels, computes
+   its gradients of three steps on 1 x 2048 tokens from its own data seed
+   and keeps them on the card, then reduces them with three ``Manager``
+   allreduce + ``should_commit`` steps under each rung, a fresh Manager
+   and ``HostCommunicator`` per rung: f32, bf16, int8 + error feedback
+   quantized on the card, and int8 quantized on the host. Logs per rung
+   and step the allreduce ms, the ring's time split into host fold and
+   socket waits, ring and device->host bytes and the pack times (and
+   each pack's device time over the whole tree against its bound);
+   checks that the f32 rung's first step equals the plain mean of both
+   groups' gradients exactly, that both groups reduce to bitwise-equal
+   trees, that the card's int8 and the host's int8 agree bitwise at
+   every step, each rung's error against f32 and its bytes against
+   f32's, and that the gradients, results and the int8 residual stay on
+   the card.
 
 Launch counts are reset just before each driven path and read just after
 it. The line before the last is a JSON object with one entry per kernel;
@@ -72,6 +89,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -942,16 +960,351 @@ def phase_sp(procs: list) -> dict:
     return {"launches": launches, "reports": reps, "static_ms": static_ms}
 
 
+# ------------------------------------------------------------ phase 6
+
+
+# The wire cell: Llama-2-7B widths cut to 2 layers; each group's gradients
+# of WIRE_STEPS steps on 1 x WIRE_SEQ tokens, computed once and kept on the
+# card (a recomputed gradient differs in its last bits: the fused
+# backward's dq atomics), then reduced under each rung by a fresh Manager.
+WIRE_LAYERS = 2
+WIRE_SEQ = 2048
+WIRE_STEPS = 3
+WIRE_RUNGS = ("f32", "bf16", "int8_device", "int8_host")
+# Relative error of the whole reduced tree against the f32 rung's: bf16
+# at twice its rounding bound (2^-8 per contribution; the H100 reads
+# 3.2e-4); int8 + error feedback at 1.3x the H100's worst reading, 4.6e-2
+# at steps 2-3 (3.2e-2 at step 1, before a residual folds in; PERF.md §2).
+WIRE_REL = {"bf16": 4e-3, "int8_device": 6e-2, "int8_host": 6e-2}
+# Ring bytes and device->host bytes against the f32 rung's, per step.
+WIRE_RING_RATIO = {"bf16": (0.49, 0.51), "int8_device": (0.25, 0.26),
+                   "int8_host": (0.25, 0.26)}
+WIRE_D2H_RATIO = {"bf16": (0.49, 0.51), "int8_device": (0.25, 0.26),
+                  "int8_host": (0.99, 1.01)}
+# Bytes per gradient element each device pack must move at least: read
+# f32 and write the wire dtype; the quantize-pack also reads and writes
+# the f32 residual (its per-segment scales and zeros are 8 bytes a 65536).
+WIRE_PACK_BYTES = {"pack_f32": 8, "pack_bf16": 6, "quantize_pack": 13}
+
+
+def _wire_kwargs(rung: str) -> dict:
+    from torchft_tpu_torch import policy
+
+    int8 = policy.POLICIES["sync-int8"]
+    return {"f32": {}, "bf16": {"allreduce_wire_dtype": torch.bfloat16},
+            "int8_device": {"policy": int8, "device_quantize": True},
+            "int8_host": {"policy": int8, "device_quantize": False}}[rung]
+
+
+def _wire_grads(group: int) -> list:
+    """WIRE_STEPS gradient trees of the wire cell's model, on the card."""
+    from torchft_tpu_torch.models.transformer import (
+        Transformer, chunked_causal_lm_loss, llama2_7b_config)
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    cfg = llama2_7b_config(num_layers=WIRE_LAYERS,
+                           attention_fn=fa.flash_attention)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    grads = []
+    for step in range(WIRE_STEPS):
+        gen = torch.Generator().manual_seed(3000 + 100 * group + step)
+        tokens = torch.randint(0, cfg.vocab_size, (1, WIRE_SEQ),
+                               generator=gen).cuda()
+        loss = chunked_causal_lm_loss(model(tokens, return_hidden=True),
+                                      model.lm_head_kernel(), tokens)
+        loss.backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+        for p in model.parameters():
+            p.grad = None
+    torch.cuda.synchronize()
+    return grads
+
+
+def _tree_hash(tree: dict) -> str:
+    h = hashlib.sha256()
+    for name in sorted(tree):
+        t = tree[name].detach().contiguous()
+        h.update(name.encode())
+        h.update(str(t.dtype).encode())
+        h.update(t.view(-1).view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def _tree_rel(tree: dict, ref: dict) -> float:
+    """||tree - ref|| / ||ref|| over every leaf at once."""
+    num = sum(float(torch.linalg.vector_norm(tree[n].float() - ref[n]
+                                             .float())) ** 2 for n in ref)
+    den = sum(float(torch.linalg.vector_norm(ref[n].float())) ** 2
+              for n in ref)
+    return (num / den) ** 0.5
+
+
+def _wire_pack_times(grads: dict) -> dict:
+    """Device ms of each pack over the whole gradient tree, chunk by chunk
+    as the allreduce packs it (the default bucket size), with its bound."""
+    from torchft_tpu_torch import manager as tm
+    from torchft_tpu_torch.communicator import BF16
+
+    names = sorted(grads)
+    leaves = [grads[n] for n in names]
+    metas = tuple((tuple(x.shape), "float32") for x in leaves)
+    sched = tm._derive_schedule(metas, 4 << 20)
+    chunks = [[leaves[i] for i in c.idx] for cs in sched.chunks for c in cs]
+    res = [torch.zeros(sum(x.numel() for x in ls), device="cuda")
+           for ls in chunks]
+    elems = sum(x.numel() for x in leaves)
+    fns = {
+        "pack_f32": lambda: [tm._pack_leaves(ls, np.dtype(np.float32))
+                             for ls in chunks],
+        "pack_bf16": lambda: [tm._pack_leaves(ls, BF16) for ls in chunks],
+        "quantize_pack": lambda: [tm._device_quantize_pack(ls, r)
+                                  for ls, r in zip(chunks, res)],
+    }
+    out = {}
+    for name, fn in fns.items():
+        bound = elems * WIRE_PACK_BYTES[name] / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"ms": cuda_ms(fn, iters=3, warmup=1),
+                     "bound_ms": bound, "chunks": len(chunks),
+                     "elems": elems}
+    return out
+
+
+def _plain_mean_err(tree: dict, mine: dict, theirs_path: str) -> tuple:
+    """``(elements that differ, largest difference)`` between ``tree`` and
+    ``(mine + theirs) / 2``, the plain mean of both groups' gradients
+    computed in torch on the card (the other group saved its gradients
+    before its first allreduce, which this one has waited out). At world
+    2 the f32 ring must give it exactly: a two-term sum does not depend
+    on its order."""
+    theirs = torch.load(theirs_path, map_location="cuda")
+    check(sorted(theirs) == sorted(tree), "wire: the groups' gradient "
+          "trees hold different leaves")
+    bad, err = 0, 0.0
+    for n, t in tree.items():
+        want = (mine[n] + theirs[n]) / 2
+        bad += int((t != want).sum())
+        err = max(err, float((t - want).abs().max()))
+    return bad, err
+
+
+def wire_worker(group: int, lighthouse: str, report: str) -> int:
+    """One replica group of the wire phase (run as ``chip_smoke.py
+    --wire-worker``)."""
+    if not torch.cuda.is_available():
+        raise SmokeError("the wire worker needs a CUDA device")
+    from torchft_tpu_torch.backends.host import HostCommunicator
+    from torchft_tpu_torch.manager import Manager
+
+    t0 = time.perf_counter()
+    grads = _wire_grads(group)
+    log(f"wire[{group}]: {WIRE_STEPS} gradient trees in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # Step 1's gradients go to the phase's directory, where the other
+    # group reads them for the plain mean the f32 rung must equal.
+    workdir = os.path.dirname(report)
+    mine = os.path.join(workdir, f"wire_grads_{group}.pt")
+    torch.save(grads[0], mine + ".tmp")
+    os.replace(mine + ".tmp", mine)
+    out = {"group": group, "rungs": {},
+           "grads_on_cuda": all(t.is_cuda for g in grads for t in g.values())}
+    refs: list = []
+    for rung in WIRE_RUNGS:
+        m = Manager(comm=HostCommunicator(), load_state_dict=lambda s: None,
+                    state_dict=dict, min_replica_size=2,
+                    replica_id=f"wire_{group}_{rung}",
+                    lighthouse_addr=lighthouse, rank=0, world_size=1,
+                    **_wire_kwargs(rung))
+        # Both groups start past step 1, where a non-primary would heal.
+        m.load_state_dict({"step": 1, "batches_committed": 0})
+        steps = []
+        try:
+            for s in range(WIRE_STEPS):
+                m.step()
+                torch.cuda.synchronize()
+                before = m.metrics()
+                t1 = time.perf_counter()
+                tree = m.allreduce(grads[s]).result()
+                wall_ms = (time.perf_counter() - t1) * 1e3
+                committed = m.should_commit()
+                mx = m.metrics()
+                d = {k: mx[k] - before[k] for k in (
+                    "allreduce_ms_total", "allreduce_fetch_dispatch_ms_total",
+                    "allreduce_fetch_wait_ms_total",
+                    "allreduce_ring_ms_total", "allreduce_put_ms_total",
+                    "allreduce_ring_fold_ms_total",
+                    "allreduce_ring_transfer_ms_total",
+                    "allreduce_ring_wire_bytes_total",
+                    "allreduce_d2h_wire_bytes_total")}
+                row = {"wall_ms": wall_ms, "committed": committed,
+                       "errored": repr(m.errored()),
+                       "on_cuda": all(t.is_cuda for t in tree.values()),
+                       "residual_bytes": mx["wire_quant_residual_bytes"],
+                       "dev_residuals": len(m._dev_residuals),
+                       "dev_residuals_cuda": all(
+                           r.is_cuda for r in m._dev_residuals.values()),
+                       "host_residuals": len(m._ef_residuals),
+                       "hash": _tree_hash(tree), **d}
+                if rung == "f32":
+                    refs.append(tree)
+                    if s == 0:
+                        row["mean_diff"] = _plain_mean_err(
+                            tree, grads[0], os.path.join(
+                                workdir, f"wire_grads_{1 - group}.pt"))
+                else:
+                    row["rel_vs_f32"] = _tree_rel(tree, refs[s])
+                del tree
+                steps.append(row)
+                log(f"wire[{group}] {rung} step {s + 1}: " + " ".join(
+                    f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in row.items() if k != "hash")
+                    + f" hash={row['hash'][:16]}")
+        finally:
+            m.shutdown()
+        out["rungs"][rung] = steps
+    out["pack_times"] = _wire_pack_times(grads[0])
+    for name, t in out["pack_times"].items():
+        log(f"wire[{group}] time[{name}] ms={t['ms']:.3f} "
+            f"bound_ms={t['bound_ms']:.3f} chunks={t['chunks']}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(report, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_wire(procs: list) -> dict:
+    """The manager's wire rungs (see the module docstring)."""
+    from torchft_tpu_torch._native import Lighthouse
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_wire_")
+    lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=2,
+                    join_timeout_ms=2000, quorum_tick_ms=50,
+                    fast_path=False)
+    t0 = time.perf_counter()
+    workers = []
+    try:
+        for group in range(2):
+            log_path = os.path.join(workdir, f"wire_group_{group}.log")
+            workers.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--wire-worker",
+                 str(group), "--wire-lighthouse", lh.address(),
+                 "--wire-report", os.path.join(workdir, f"wire_{group}.json")],
+                cwd=ROOT, stdout=open(log_path, "w"),
+                stderr=subprocess.STDOUT, start_new_session=True))
+        procs += workers
+        for group, proc in enumerate(workers):
+            _wait(proc, 900, f"wire group {group}")
+        reps = []
+        for group in range(2):
+            with open(os.path.join(workdir, f"wire_{group}.json")) as f:
+                reps.append(json.load(f))
+    finally:
+        lh.shutdown()
+        for name in os.listdir(workdir):
+            if name.endswith(".log"):
+                shutil.copy(os.path.join(workdir, name), OUT_DIR)
+        # The saved gradient trees are 2.7 GB each.
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"wire: both groups done in {time.perf_counter() - t0:.1f} s")
+    f32 = reps[0]["rungs"]["f32"]
+    for rung in WIRE_RUNGS:
+        for s, row in enumerate(reps[0]["rungs"][rung]):
+            ring = row["allreduce_ring_wire_bytes_total"]
+            d2h = row["allreduce_d2h_wire_bytes_total"]
+            ring_f32 = f32[s]["allreduce_ring_wire_bytes_total"]
+            d2h_f32 = f32[s]["allreduce_d2h_wire_bytes_total"]
+            other = reps[1]["rungs"][rung][s]
+            log(f"wire: {rung} step {s + 1} allreduce_ms="
+                f"{row['allreduce_ms_total']:.1f} wall_ms={row['wall_ms']:.1f}"
+                " fetch_dispatch_ms="
+                f"{row['allreduce_fetch_dispatch_ms_total']:.1f}"
+                f" fetch_wait_ms={row['allreduce_fetch_wait_ms_total']:.1f}"
+                f" ring_bytes={ring:.0f} d2h_bytes={d2h:.0f} ring_ratio="
+                f"{ring / ring_f32:.4f} d2h_ratio={d2h / d2h_f32:.4f}"
+                f" ring_ms={row['allreduce_ring_ms_total']:.1f}"
+                f" ring_fold_ms={row['allreduce_ring_fold_ms_total']:.1f}"
+                f" ring_transfer_ms="
+                f"{row['allreduce_ring_transfer_ms_total']:.1f}"
+                f" put_ms={row['allreduce_put_ms_total']:.1f}"
+                f" rel_vs_f32={row.get('rel_vs_f32', 0.0):.3e} "
+                f"group1_allreduce_ms={other['allreduce_ms_total']:.1f}")
+    for r in reps:
+        log(f"wire: group {r['group']} peak_gb={r['peak_gb']:.1f} " + " ".join(
+            f"{n}_ms={t['ms']:.3f}/bound {t['bound_ms']:.3f}"
+            for n, t in r["pack_times"].items()))
+    for r in reps:
+        log(f"wire: group {r['group']} f32 step 1 against the plain mean "
+            "of both groups' gradients: elements_differing=%d max_abs=%.3e"
+            % tuple(r["rungs"]["f32"][0]["mean_diff"]))
+
+    # Every reading is logged above; now the checks.
+    for r in reps:
+        check(r["grads_on_cuda"], f"wire group {r['group']}: gradients "
+              "left the card")
+        check(r["rungs"]["f32"][0]["mean_diff"][0] == 0,
+              f"wire group {r['group']}: the f32 rung's step 1 differs from "
+              "the plain mean of both groups' gradients")
+        for rung in WIRE_RUNGS:
+            rows = r["rungs"][rung]
+            check(len(rows) == WIRE_STEPS, f"wire {rung}: steps missing")
+            for s, row in enumerate(rows):
+                where = f"wire group {r['group']} {rung} step {s + 1}"
+                check(row["committed"] and row["errored"] == "None",
+                      f"{where}: not committed ({row['errored']})")
+                check(row["on_cuda"], f"{where}: reduced tree off the card")
+                if rung == "int8_device":
+                    check(row["dev_residuals"] > 0
+                          and row["dev_residuals_cuda"]
+                          and row["host_residuals"] == 0,
+                          f"{where}: residual not held on the card")
+                if rung == "int8_host":
+                    check(row["host_residuals"] > 0
+                          and row["dev_residuals"] == 0,
+                          f"{where}: residual not held on the host")
+    for rung in WIRE_RUNGS:
+        for s in range(WIRE_STEPS):
+            a, b = (r["rungs"][rung][s] for r in reps)
+            check(a["hash"] == b["hash"], f"wire {rung} step {s + 1}: the "
+                  "groups' reduced trees differ")
+            if rung == "f32":
+                continue
+            lo, hi = WIRE_RING_RATIO[rung]
+            ring = (a["allreduce_ring_wire_bytes_total"]
+                    / f32[s]["allreduce_ring_wire_bytes_total"])
+            check(lo <= ring <= hi, f"wire {rung} step {s + 1}: ring bytes "
+                  f"{ring:.4f} of f32's, outside [{lo}, {hi}]")
+            lo, hi = WIRE_D2H_RATIO[rung]
+            d2h = (a["allreduce_d2h_wire_bytes_total"]
+                   / f32[s]["allreduce_d2h_wire_bytes_total"])
+            check(lo <= d2h <= hi, f"wire {rung} step {s + 1}: device->host "
+                  f"bytes {d2h:.4f} of f32's, outside [{lo}, {hi}]")
+            for r in reps:
+                rel = r["rungs"][rung][s]["rel_vs_f32"]
+                check(rel <= WIRE_REL[rung], f"wire {rung} step {s + 1}: "
+                      f"relative error {rel:.3e} against f32 above "
+                      f"{WIRE_REL[rung]}")
+    for s in range(WIRE_STEPS):
+        check(reps[0]["rungs"]["int8_device"][s]["hash"]
+              == reps[0]["rungs"]["int8_host"][s]["hash"],
+              f"wire step {s + 1}: int8 quantized on the card and on the "
+              "host reduce to different trees")
+    return {"reports": reps}
+
+
 # ------------------------------------------------------------------ main
 
 
 def main(argv: list) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="card,kernels,ft,split,sp")
-    # A rank of the sp phase's group (started by the phase itself).
+    ap.add_argument("--phases", default="card,kernels,ft,split,sp,wire")
+    # A rank of the sp phase's group, or a group of the wire phase
+    # (started by the phase itself).
     ap.add_argument("--sp-worker", type=int, default=None)
     ap.add_argument("--sp-init")
     ap.add_argument("--sp-report")
+    ap.add_argument("--wire-worker", type=int, default=None)
+    ap.add_argument("--wire-lighthouse")
+    ap.add_argument("--wire-report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     # Full-precision float32 matmuls: the plain versions are references.
@@ -959,6 +1312,9 @@ def main(argv: list) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.sp_worker is not None:
         return sp_worker(args.sp_worker, args.sp_init, args.sp_report)
+    if args.wire_worker is not None:
+        return wire_worker(args.wire_worker, args.wire_lighthouse,
+                           args.wire_report)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -979,6 +1335,8 @@ def main(argv: list) -> int:
             launches["bwd_dkdv"] = split["bwd_dkdv"]
         if "sp" in phases:
             launches.update(phase_sp(procs)["launches"])
+        if "wire" in phases:
+            phase_wire(procs)
     finally:
         for p in procs:
             if p.poll() is None:

@@ -1,28 +1,36 @@
-"""The port's Manager (sync sub-slice) with a scripted control plane over a
+"""The port's Manager (sync path) with a scripted control plane over a
 real socketpair ring: the allreduce bitwise against the JAX Manager's on
-the same inputs (participants, a healer contributing zeros, int leaves,
-bucket boundaries), the vote and error latch, ring poisoning and the
-recovery rendezvous, the staged heal applied at commit, and the
-constructor arguments this sub-slice does not take."""
+the same inputs under every wire rung (f32, bf16 packed on the device or
+cast on the host, int8 + error feedback quantized on the device or the
+host, bf16 leaves), with participants, a healer contributing zeros, int
+leaves, bucket boundaries and a capped stage-ahead window; the vote and
+error latch, ring poisoning and the recovery rendezvous, the staged heal
+applied at commit, a healer adopting the donor's wire rung, and the
+constructor arguments not ported yet."""
 
 from __future__ import annotations
 
 import socket
 import threading
+from concurrent.futures import Future
 from unittest.mock import MagicMock
 
+import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
 from torchft_tpu import manager as jmanager
+from torchft_tpu import policy as jpolicy
 from torchft_tpu._native import QuorumResult as JQuorumResult
 from torchft_tpu.backends import host as jhost
 from torchft_tpu_torch import manager as tmanager
+from torchft_tpu_torch import policy as tpolicy
 from torchft_tpu_torch._native import QuorumResult
 from torchft_tpu_torch.backends import host as thost
 from torchft_tpu_torch.checkpointing import CheckpointServer
-from torchft_tpu_torch.communicator import CommunicatorError
+from torchft_tpu_torch.communicator import CommunicatorError, Int8Wire
 
 pytestmark = pytest.mark.port
 
@@ -77,13 +85,73 @@ TREE = {
     "i": np.arange(6, dtype=np.int32),
 }
 
+# rung -> (port Manager kwargs, JAX Manager kwargs, JAX leaves on the
+# device); "bf16_leaves" casts the float leaves to bf16 with no wire dtype.
+# "bf16_host" fetches the float32 chunk and casts it on the host (the
+# ``hostcast`` staging record), which needs device leaves on the JAX side.
+RUNGS = {
+    "f32": ({}, {}, False),
+    "bf16": ({"allreduce_wire_dtype": torch.bfloat16},
+             {"allreduce_wire_dtype": ml_dtypes.bfloat16}, False),
+    "bf16_host": ({"allreduce_wire_dtype": torch.bfloat16,
+                   "device_quantize": False},
+                  {"allreduce_wire_dtype": ml_dtypes.bfloat16,
+                   "device_quantize": False}, True),
+    "int8_device": ({"policy": tpolicy.POLICIES["sync-int8"],
+                     "device_quantize": True},
+                    {"policy": jpolicy.POLICIES["sync-int8"],
+                     "device_quantize": True}, True),
+    "int8_host": ({"policy": tpolicy.POLICIES["sync-int8"],
+                   "device_quantize": False},
+                  {"policy": jpolicy.POLICIES["sync-int8"],
+                   "device_quantize": False}, False),
+    "bf16_leaves": ({}, {}, False),
+}
+# The staging record each rung's float chunks take in the port.
+RUNG_KIND = {"f32": "pack", "bf16": "pack", "bf16_host": "hostcast",
+             "int8_device": "int8dev", "int8_host": "pack",
+             "bf16_leaves": "pack"}
 
-def _allreduce(mod, world, healer=None, bucket_bytes=1024):
-    """Every rank of one package runs step + allreduce + vote; rank
-    ``healer`` sits the step out and contributes zeros."""
+
+def _rank_tree(r, step, rung):
+    """Rank r's gradients at ``step`` as numpy (bf16 leaves as ml_dtypes
+    arrays)."""
+    tree = {k: v * (r + 1) * (1 + step) if k != "b" else v * (r + 1) - step
+            for k, v in TREE.items()}
+    if rung == "bf16_leaves":
+        tree = {k: v.astype(ml_dtypes.bfloat16) if v.dtype == np.float32
+                else v for k, v in tree.items()}
+    return tree
+
+
+def _to_torch(v):
+    if v.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
+    return torch.tensor(v)
+
+
+def _bytes(v):
+    if isinstance(v, torch.Tensor):
+        if v.dtype == torch.bfloat16:
+            return "bf16", v.view(torch.int16).numpy().tobytes()
+        return v.numpy().dtype.str[1:], v.numpy().tobytes()
+    v = np.asarray(v)
+    return ("bf16" if v.dtype == ml_dtypes.bfloat16 else v.dtype.str[1:],
+            v.tobytes())
+
+
+def _allreduce(mod, world, healer=None, bucket_bytes=1024, rung="f32",
+               steps=2, staging=None):
+    """Every rank of one package runs ``steps`` x (step + allreduce +
+    vote) on one Manager; rank ``healer`` sits out and contributes
+    zeros. Returns each rank's reduced trees, as (dtype, bytes) leaves.
+    For the port, ``staging`` (a list per rank) gets the Manager's
+    staging events in order: ``("stage", bucket, kinds)`` and
+    ``("wait", bucket)``."""
     comms = _ring_comms(thost if mod is tmanager else jhost, world)
     qcls = QuorumResult if mod is tmanager else JQuorumResult
-    results = [None] * world
+    port_kw, jax_kw, jax_device = RUNGS[rung]
+    results = [[] for _ in range(world)]
     errors = []
 
     def run(r):
@@ -93,19 +161,35 @@ def _allreduce(mod, world, healer=None, bucket_bytes=1024):
                replica_rank=r, replica_world_size=world, heal=False)
         # The JAX Manager's striped-heal advertisement would dial the
         # scripted store address; the port has no striped heal.
-        extra = {} if mod is tmanager else {"heal_striped": False}
+        extra = (dict(port_kw) if mod is tmanager
+                 else {"heal_striped": False, **jax_kw})
         m = _make(mod, comms[r], _client(q),
                   allreduce_bucket_bytes=bucket_bytes, **extra)
+        if staging is not None:
+            stage, wait = m._stage_bucket, m._wait_bucket
+
+            def staged(sched, b, leaves, int8):
+                recs = stage(sched, b, leaves, int8)
+                staging[r].append(("stage", b, [k for _, k, *_ in recs]))
+                return recs
+
+            def waited(recs, bucket):
+                staging[r].append(("wait", bucket))
+                return wait(recs, bucket)
+
+            m._stage_bucket, m._wait_bucket = staged, waited
         try:
-            m.step()
-            if mod is tmanager:
-                tree = {k: torch.tensor(v * (r + 1)) for k, v in TREE.items()}
-            else:
-                tree = {k: v * (r + 1) for k, v in TREE.items()}
-            out = m.allreduce(tree).result(timeout=30)
-            assert m.errored() is None, m.errored()
-            assert m.should_commit()
-            results[r] = {k: np.asarray(v) for k, v in out.items()}
+            for step in range(steps):
+                m.step()
+                tree = _rank_tree(r, step, rung)
+                if mod is tmanager:
+                    tree = {k: _to_torch(v) for k, v in tree.items()}
+                elif jax_device:
+                    tree = {k: jnp.asarray(v) for k, v in tree.items()}
+                out = m.allreduce(tree).result(timeout=30)
+                assert m.errored() is None, m.errored()
+                assert m.should_commit()
+                results[r].append({k: _bytes(v) for k, v in out.items()})
         except Exception as e:  # noqa: BLE001
             errors.append(e)
         finally:
@@ -120,18 +204,62 @@ def _allreduce(mod, world, healer=None, bucket_bytes=1024):
     return results
 
 
+@pytest.mark.parametrize("rung", list(RUNGS))
 @pytest.mark.parametrize("world,healer", [(2, None), (3, None), (3, 1)])
-def test_allreduce_bitwise_equal_to_jax_manager(world, healer):
-    port = _allreduce(tmanager, world, healer)
-    jax_side = _allreduce(jmanager, world, healer)
+def test_allreduce_bitwise_equal_to_jax_manager(world, healer, rung):
+    """Each wire rung, two steps (the int8 rung's error feedback folds
+    step 1's residual into step 2), port ranks against JAX ranks."""
+    staging = [[] for _ in range(world)]
+    port = _allreduce(tmanager, world, healer, rung=rung, staging=staging)
+    jax_side = _allreduce(jmanager, world, healer, rung=rung)
     for r in range(world):
-        for k in TREE:
-            assert port[r][k].dtype == TREE[k].dtype
-            assert port[r][k].tobytes() == jax_side[r][k].tobytes(), (r, k)
+        kinds = {k for e in staging[r] if e[0] == "stage" for k in e[2]}
+        assert kinds <= {RUNG_KIND[rung], "pack"}, (r, kinds)
+        assert (r == healer) == (RUNG_KIND[rung] not in kinds), (r, kinds)
+    for r in range(world):
+        for step in range(2):
+            for k in TREE:
+                assert port[r][step][k] == jax_side[r][step][k], (r, step, k)
+    want = {"bf16_leaves": "bf16"}.get(rung, "f4")
+    assert port[0][0]["a"][0] == want and port[0][0]["i"][0] == "i4"
     # Exact math at world 2: (x + 2x) / 2.
-    if world == 2:
-        np.testing.assert_array_equal(port[0]["b"],
-                                      (TREE["b"] * 3) / np.float32(2))
+    if world == 2 and rung == "f32":
+        assert port[0][0]["b"][1] == ((TREE["b"] * 3)
+                                      / np.float32(2)).tobytes()
+
+
+@pytest.mark.parametrize("rung", ["f32", "int8_device"])
+@pytest.mark.parametrize("window", [None, "0", "1"])
+def test_stage_ahead_window_bitwise_equal_to_jax_manager(
+        monkeypatch, window, rung):
+    """``TORCHFT_ALLREDUCE_STAGE_AHEAD`` caps how many buckets are packed
+    ahead of the one being waited on (unset: all of them up front); the
+    reduced trees stay bitwise the JAX Manager's under the same cap."""
+    if window is None:
+        monkeypatch.delenv("TORCHFT_ALLREDUCE_STAGE_AHEAD", raising=False)
+    else:
+        monkeypatch.setenv("TORCHFT_ALLREDUCE_STAGE_AHEAD", window)
+    staging = [[], []]
+    port = _allreduce(tmanager, 2, rung=rung, staging=staging)
+    jax_side = _allreduce(jmanager, 2, rung=rung)
+    assert port == jax_side
+    for events in staging:
+        n = sum(e[0] == "stage" for e in events) // 2  # buckets a step
+        assert n >= 3
+        staged = 0
+        for e in events:
+            if e[0] == "stage":
+                staged = 1 if e[1] == 0 else staged + 1
+                continue
+            want = n if window is None else min(n, e[1] + 1 + int(window))
+            assert staged == want, (window, events)
+
+
+def test_stage_ahead_window_reads_env(monkeypatch):
+    for raw, want in [("", None), ("0", 0), ("2", 2), ("-3", 0),
+                      ("x", 0)]:
+        monkeypatch.setenv("TORCHFT_ALLREDUCE_STAGE_AHEAD", raw)
+        assert tmanager._stage_ahead_window() == want
 
 
 def test_single_group_step_skips_the_ring():
@@ -220,18 +348,54 @@ def test_unported_arguments_are_refused():
     with pytest.raises(TypeError):
         _make(tmanager, comm, _client(_q()), shard_update=True)
     with pytest.raises(TypeError):
-        _make(tmanager, comm, _client(_q()), policy=object())
+        _make(tmanager, comm, _client(_q()), policy_controller=object())
     with pytest.raises(ValueError, match="overlap"):
         _make(tmanager, comm, _client(_q()), overlap_steps=1)
 
 
-def test_bfloat16_gradients_are_refused():
+def test_healer_adopts_donor_int8_rung_and_sends_int8_zeros():
+    """A policy-aware healer on the f32 rung heals from a donor whose
+    state carries the int8 rung: it adopts the rung with the state,
+    flushes the residuals banked under the old one, and contributes
+    Int8Wire zeros to the ring that same step."""
+    int8 = tpolicy.POLICIES["sync-int8"]
+    donor_state = {"user": {"w": torch.arange(6, dtype=torch.float32)},
+                   "torchft": {"step": 7, "batches_committed": 14,
+                               **int8.to_state()}}
+    donor = CheckpointServer(lambda: donor_state, bind_host="127.0.0.1")
+    donor.allow_checkpoint(7)
+    live = {"w": torch.zeros(6)}
     comm = MagicMock()
     comm.size.return_value = 2
-    m = _make(tmanager, comm, _client(_q()))
+    sent = Future()
+    sent.set_result([np.zeros(6, np.float32)])
+    comm.allreduce_wire.return_value = sent
+    client = _client(_q(max_step=7, max_rank=None, max_world_size=1,
+                        heal=True))
+    m = tmanager.Manager(comm=comm, load_state_dict=lambda s: None,
+                         state_dict=lambda: live, min_replica_size=1,
+                         policy=tpolicy.POLICIES["sync-f32"],
+                         _manager_client=client,
+                         checkpoint_bind_host="127.0.0.1")
+    m._ef_residuals[("old", 0, 0)] = np.ones(6, np.float32)
+    m._dev_residuals[("old", 0, 0)] = torch.ones(6)
     try:
-        m.step()
-        m.allreduce({"w": torch.ones(3, dtype=torch.bfloat16)})
-        assert isinstance(m.errored(), TypeError)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tmanager.Manager, "_resolve_checkpoint_addr",
+                       lambda self, addr: donor.address())
+            m.step()
+            m.wait_quorum()
+        assert m.policy() == int8
+        assert not m._ef_residuals and not m._dev_residuals
+        assert m.metrics()["wire_quant_residual_bytes"] == 0.0
+        assert m.state_dict()["policy_wire"] == tpolicy.WIRE_INT8
+        m.allreduce({"w": torch.ones(6)}).result(timeout=30)
+        bufs, origs = comm.allreduce_wire.call_args.args
+        assert origs == ["float32"]
+        (w,) = bufs
+        assert isinstance(w, Int8Wire)
+        assert w.to_bytes() == Int8Wire.zeros_like(6).to_bytes()
+        assert m.should_commit()
     finally:
         m.shutdown()
+        donor.shutdown()

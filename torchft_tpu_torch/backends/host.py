@@ -36,8 +36,12 @@ import numpy as np
 
 from torchft_tpu_torch import chaos, transport
 from torchft_tpu_torch._native import StoreClient
-from torchft_tpu_torch.communicator import (Communicator, CommunicatorError,
-                                      Int8Wire, shard_bounds)
+from torchft_tpu_torch.communicator import (BF16, Communicator,
+                                            CommunicatorError, Int8Wire,
+                                            bf16_to_f32, dtype_name,
+                                            f32_to_bf16, fold_into,
+                                            host_dtype, shard_bounds,
+                                            to_dtype)
 from torchft_tpu_torch.retry import RetryPolicy, RetryStats, call_with_retry
 from torchft_tpu_torch.serialization import load_pytree, save_pytree
 from torchft_tpu_torch.tracing import maybe_span
@@ -266,6 +270,12 @@ class HostCommunicator(Communicator):
         # on its own (Manager surfaces it as
         # allreduce_int8_ring_bytes_total).
         self._ring_bytes_int8 = 0.0
+        # Seconds the op worker spent in the allreduce rings' host fold
+        # (widen, dequantize, add) and blocked on their sockets (receive,
+        # drain of the outbound chunk), split so the ring's time can be
+        # told apart (Manager: allreduce_ring_{fold,transfer}_ms_total).
+        self._ring_fold_s = 0.0
+        self._ring_transfer_s = 0.0
         self._epoch = 0
         self._lock = threading.Lock()
         self._ops: "queue.Queue[Optional[Tuple]]" = queue.Queue()
@@ -776,15 +786,15 @@ class HostCommunicator(Communicator):
     @staticmethod
     def _local_wire(b: Any, d: np.dtype) -> np.ndarray:
         """World-1 resolution of one wire buffer: dequantize int8,
-        upcast anything else — sum-over-one is identity either way."""
+        cast anything else — sum-over-one is identity either way."""
         if isinstance(b, Int8Wire):
             return b.dequantize(d)
-        return np.ravel(np.asarray(b)).astype(d, copy=False)
+        return to_dtype(b, d, copy=False)
 
     def allreduce_wire(self, buffers: Sequence[Any],
                        orig_dtypes: Sequence[Any],
                        op: str = "sum") -> Future:
-        origs = [np.dtype(d) for d in orig_dtypes]
+        origs = [host_dtype(d) for d in orig_dtypes]
         if self._world == 1:
             # World-1 weighted average of one contributor is the
             # contributor itself (w*x/w = x), so the unweighted local
@@ -801,7 +811,7 @@ class HostCommunicator(Communicator):
     def reduce_scatter_wire(self, buffers: Sequence[Any],
                             orig_dtypes: Sequence[Any],
                             op: str = "sum") -> Future:
-        origs = [np.dtype(d) for d in orig_dtypes]
+        origs = [host_dtype(d) for d in orig_dtypes]
         if self._world == 1:
             # World-1 stripe is the whole buffer.
             return self._immediate([
@@ -850,10 +860,7 @@ class HostCommunicator(Communicator):
                     [arrs[i].reshape(-1) for i in idxs])
             reduced = self._ring_allreduce_buffer(ring, flat)
             if op == "mean":
-                if np.issubdtype(reduced.dtype, np.inexact):
-                    reduced /= self._world
-                else:
-                    reduced //= self._world
+                _mean_in_place(reduced, self._world)
             pos = 0
             for i in idxs:
                 n = arrs[i].size
@@ -881,8 +888,8 @@ class HostCommunicator(Communicator):
             send_view = chunk_bytes(rank + 1 - step)
             self._ring_bytes += len(send_view)
             fut = ring.send_async(send_view)
-            _recv_exact_into(ring.prev_sock, chunk_bytes(rank - step))
-            fut.result()
+            self._recv(ring, chunk_bytes(rank - step))
+            self._sent(fut)
         return acc
 
     def _ring_reduce_scatter_phase(self, ring: _Ring, flat: np.ndarray):
@@ -928,12 +935,14 @@ class HostCommunicator(Communicator):
             while off < nbytes:
                 k = min(_SEG_BYTES, nbytes - off)
                 seg = scratch_view[:k]
-                _recv_exact_into(ring.prev_sock, seg)
+                self._recv(ring, seg)
                 lo = off // itemsize
-                recv_c[lo:lo + k // itemsize] += np.frombuffer(
-                    seg, dtype=acc.dtype)
+                t0 = time.perf_counter()
+                fold_into(recv_c[lo:lo + k // itemsize],
+                          np.frombuffer(seg, dtype=acc.dtype))
+                self._ring_fold_s += time.perf_counter() - t0
                 off += k
-            fut.result()
+            self._sent(fut)
         return acc, chunk_bytes
 
     def _ring_reduce_scatter_buffer(self, ring: _Ring,
@@ -972,11 +981,14 @@ class HostCommunicator(Communicator):
         detect exactly the same skew classes."""
         desc = [op, tag]
         for b, orig in zip(buffers, origs):
+            # bf16 hashes as "bfloat16" (dtype_name), as the JAX
+            # package's ml_dtypes arrays do, so mixed rings agree.
             if isinstance(b, Int8Wire):
-                desc.append(f"i8:{b.size}:{b.seg_elems}:{orig}")
+                desc.append(f"i8:{b.size}:{b.seg_elems}:{dtype_name(orig)}")
             else:
                 a = np.asarray(b)
-                desc.append(f"{a.dtype}:{a.size}:{orig}")
+                desc.append(f"{dtype_name(a.dtype)}:{a.size}:"
+                            f"{dtype_name(orig)}")
         return epoch_key("|".join(desc))
 
     def _wire_preamble(self, ring: _Ring, op: str, buffers: List[Any],
@@ -1103,10 +1115,7 @@ class HostCommunicator(Communicator):
             else:
                 reduced = self._ring_allreduce_wire(ring, a, orig)
             if op == "mean":
-                if np.issubdtype(reduced.dtype, np.inexact):
-                    reduced /= self._world
-                else:
-                    reduced //= self._world
+                _mean_in_place(reduced, self._world)
             out.append(reduced)
         return out
 
@@ -1137,7 +1146,10 @@ class HostCommunicator(Communicator):
         n, rank = self._world, self._rank
         wdt = wire_buf.dtype
         if n * wdt.itemsize > 2 * orig.itemsize:
-            return self._ring_allreduce_buffer(ring, wire_buf.astype(orig))
+            t0 = time.perf_counter()
+            acc = to_dtype(wire_buf, orig)
+            self._ring_fold_s += time.perf_counter() - t0
+            return self._ring_allreduce_buffer(ring, acc)
         size = wire_buf.size
         nbytes = size * wdt.itemsize
         send_view = _as_bytes(np.ascontiguousarray(wire_buf))
@@ -1147,7 +1159,9 @@ class HostCommunicator(Communicator):
             # two-term f32 sum is order-insensitive, so both ranks get
             # bitwise-identical results — and bitwise-identical to the
             # upcast-before-ring path they replace.
-            acc = wire_buf.astype(orig)
+            t0 = time.perf_counter()
+            acc = to_dtype(wire_buf, orig)
+            self._ring_fold_s += time.perf_counter() - t0
             self._ring_bytes += nbytes
             fut = ring.send_async(send_view)
             scratch = bytearray(min(_SEG_BYTES, max(nbytes, 1)))
@@ -1156,12 +1170,14 @@ class HostCommunicator(Communicator):
             while off < nbytes:
                 k = min(_SEG_BYTES, nbytes - off)
                 seg = sv[:k]
-                _recv_exact_into(ring.prev_sock, seg)
+                self._recv(ring, seg)
                 lo = off // wdt.itemsize
-                acc[lo:lo + k // wdt.itemsize] += np.frombuffer(
-                    seg, dtype=wdt).astype(orig)
+                t0 = time.perf_counter()
+                fold_into(acc[lo:lo + k // wdt.itemsize],
+                          to_dtype(np.frombuffer(seg, dtype=wdt), orig))
+                self._ring_fold_s += time.perf_counter() - t0
                 off += k
-            fut.result()
+            self._sent(fut)
             return acc
         # world 3+ (within the byte crossover): ring-allgather the raw
         # wire buffers (each step forwards the previously received one),
@@ -1173,13 +1189,15 @@ class HostCommunicator(Communicator):
             self._ring_bytes += nbytes
             fut = ring.send_async(send_view)
             recv = np.empty(size, wdt)
-            _recv_exact_into(ring.prev_sock, _as_bytes(recv))
-            fut.result()
+            self._recv(ring, _as_bytes(recv))
+            self._sent(fut)
             bufs[(rank - step - 1) % n] = recv
             send_view = _as_bytes(recv)
+        t0 = time.perf_counter()
         acc = np.zeros(size, orig)
         for b in bufs:
-            acc += b.astype(orig)
+            fold_into(acc, to_dtype(b, orig))
+        self._ring_fold_s += time.perf_counter() - t0
         return acc
 
     def _ring_allgather_raw(self, ring: _Ring,
@@ -1223,19 +1241,24 @@ class HostCommunicator(Communicator):
         slice-commutes elementwise — the reduce-scatter stripe is
         bitwise the same slice of the allreduce result. ``bufs`` may
         be any iterable — the int8 paths feed a dequantize GENERATOR
-        so only one full-size buffer is live at a time."""
-        acc = np.zeros(hi - lo, orig)
-        scalar = orig.type
+        so only one full-size buffer is live at a time. A bf16
+        accumulator folds in float32 and rounds to bf16 once at the end
+        (the JAX package folds in bf16 and floor-divides it, since
+        ml_dtypes' bf16 is not a numpy floating type: ROADMAP C)."""
+        bf16 = orig == BF16
+        acc_dt = np.dtype(np.float32) if bf16 else orig
+        acc = np.zeros(hi - lo, acc_dt)
+        scalar = acc_dt.type
         for w, b in zip(weights, bufs):
             if w:
-                acc += np.ravel(b)[lo:hi].astype(orig) * scalar(w)
+                acc += to_dtype(np.ravel(b)[lo:hi], acc_dt) * scalar(w)
         total = sum(weights)
         if total:
-            if np.issubdtype(orig, np.floating):
+            if np.issubdtype(acc_dt, np.floating):
                 acc /= scalar(total)
             else:
                 acc //= total
-        return acc
+        return f32_to_bf16(acc) if bf16 else acc
 
     def _ring_allreduce_weighted(self, ring: _Ring,
                                  wire_buf: np.ndarray, orig: np.dtype,
@@ -1300,9 +1323,11 @@ class HostCommunicator(Communicator):
             return self._weighted_fold(
                 (wb.dequantize(orig) for wb in bufs), orig, weights,
                 0, w.size)
+        t0 = time.perf_counter()
         acc = np.zeros(w.size, orig)
         for wb in bufs:
             acc += wb.dequantize(orig)
+        self._ring_fold_s += time.perf_counter() - t0
         return acc
 
     def _ring_allgather_int8(self, ring: _Ring,
@@ -1324,8 +1349,8 @@ class HostCommunicator(Communicator):
             self._ring_bytes_int8 += nbytes
             fut = ring.send_async(send_view)
             recv = bytearray(nbytes)
-            _recv_exact_into(ring.prev_sock, memoryview(recv))
-            fut.result()
+            self._recv(ring, memoryview(recv))
+            self._sent(fut)
             raw[(rank - step - 1) % n] = recv
             send_view = memoryview(recv)
         return [b if isinstance(b, Int8Wire)
@@ -1401,10 +1426,7 @@ class HostCommunicator(Communicator):
             else:
                 shard = self._ring_reduce_scatter_wire(ring, a, orig)
             if op == "mean":
-                if np.issubdtype(shard.dtype, np.inexact):
-                    shard /= self._world
-                else:
-                    shard //= self._world
+                _mean_in_place(shard, self._world)
             out.append(shard)
         return out
 
@@ -1428,7 +1450,7 @@ class HostCommunicator(Communicator):
         wdt = wire_buf.dtype
         if n * wdt.itemsize > 2 * orig.itemsize:
             return self._ring_reduce_scatter_buffer(
-                ring, wire_buf.astype(orig))
+                ring, to_dtype(wire_buf, orig))
         size = wire_buf.size
         bounds = shard_bounds(size, n)
         lo, hi = int(bounds[rank]), int(bounds[rank + 1])
@@ -1444,7 +1466,7 @@ class HostCommunicator(Communicator):
                 np.ascontiguousarray(wire_buf[plo:phi]))
             self._ring_bytes += len(send_view)
             fut = ring.send_async(send_view)
-            acc = wire_buf[lo:hi].astype(orig)
+            acc = to_dtype(wire_buf[lo:hi], orig)
             nbytes = (hi - lo) * wdt.itemsize
             scratch = bytearray(min(_SEG_BYTES, max(nbytes, 1)))
             sv = memoryview(scratch)
@@ -1454,8 +1476,8 @@ class HostCommunicator(Communicator):
                 seg = sv[:k]
                 _recv_exact_into(ring.prev_sock, seg)
                 s = off // wdt.itemsize
-                acc[s:s + k // wdt.itemsize] += np.frombuffer(
-                    seg, dtype=wdt).astype(orig)
+                fold_into(acc[s:s + k // wdt.itemsize],
+                          to_dtype(np.frombuffer(seg, dtype=wdt), orig))
                 off += k
             fut.result()
             return acc
@@ -1477,7 +1499,7 @@ class HostCommunicator(Communicator):
             send_view = _as_bytes(recv)
         acc = np.zeros(hi - lo, orig)
         for b in bufs:
-            acc += b[lo:hi].astype(orig)
+            fold_into(acc, to_dtype(b[lo:hi], orig))
         return acc
 
     # --------------------------------------- hierarchical wire transport
@@ -1751,23 +1773,20 @@ class HostCommunicator(Communicator):
             wdt = arrs[0].dtype
             if wdt != orig and n * wdt.itemsize <= 2 * orig.itemsize:
                 if n == 2:
-                    acc = arrs[0][lo:hi].astype(orig)
-                    acc += arrs[1][lo:hi].astype(orig)
+                    acc = to_dtype(arrs[0][lo:hi], orig)
+                    fold_into(acc, to_dtype(arrs[1][lo:hi], orig))
                 else:
                     acc = np.zeros(hi - lo, orig)
                     for a in arrs:
-                        acc += a[lo:hi].astype(orig)
+                        fold_into(acc, to_dtype(a[lo:hi], orig))
             else:
                 if wdt != orig:
-                    arrs = [a.astype(orig) for a in arrs]
+                    arrs = [to_dtype(a, orig) for a in arrs]
                 acc = _fold_exact_ring_order(
                     arrs, orig, n,
                     stripe=rank if kind == "rs" else None)
         if op == "mean":
-            if np.issubdtype(acc.dtype, np.inexact):
-                acc /= n
-            else:
-                acc //= n
+            _mean_in_place(acc, n)
         return acc
 
     def _do_broadcast(self, ring: Optional[_Ring], tree: Any,
@@ -1819,6 +1838,23 @@ class HostCommunicator(Communicator):
 
     def int8_ring_bytes_total(self) -> float:
         return self._ring_bytes_int8
+
+    def ring_time_ms_total(self) -> Dict[str, float]:
+        return {"fold": self._ring_fold_s * 1e3,
+                "transfer": self._ring_transfer_s * 1e3}
+
+    def _recv(self, ring: _Ring, view: Any) -> None:
+        """Receive into ``view`` from the ring's predecessor, timed as
+        transfer."""
+        t0 = time.perf_counter()
+        _recv_exact_into(ring.prev_sock, view)
+        self._ring_transfer_s += time.perf_counter() - t0
+
+    def _sent(self, fut: Future) -> None:
+        """Wait for an outbound send to drain, timed as transfer."""
+        t0 = time.perf_counter()
+        fut.result()
+        self._ring_transfer_s += time.perf_counter() - t0
 
     def ring_topology(self) -> str:
         topo = self._hier
@@ -1886,7 +1922,7 @@ def _fold_exact_ring_order(arrs: List[np.ndarray], orig: np.dtype,
         lo, hi = int(bounds[c]), int(bounds[c + 1])
         acc = np.array(arrs[c % world][lo:hi], dtype=orig)
         for s in range(1, world):
-            acc += arrs[(c + s) % world][lo:hi]
+            fold_into(acc, arrs[(c + s) % world][lo:hi])
         return acc
 
     if stripe is not None:
@@ -1895,6 +1931,18 @@ def _fold_exact_ring_order(arrs: List[np.ndarray], orig: np.dtype,
     for c in range(world):
         out[int(bounds[c]):int(bounds[c + 1])] = fold_chunk(c)
     return out
+
+
+def _mean_in_place(a: np.ndarray, world: int) -> None:
+    """``op="mean"``: divide a reduced buffer by the world in place —
+    true division for floats (bf16: the float32 quotient rounded once),
+    floor division for integers."""
+    if a.dtype == BF16:
+        a[...] = f32_to_bf16(bf16_to_f32(a) / np.float32(world))
+    elif np.issubdtype(a.dtype, np.inexact):
+        a /= world
+    else:
+        a //= world
 
 
 def epoch_key(prefix: str) -> int:

@@ -1147,6 +1147,9 @@ class ChaosCommunicator(Communicator):
     def int8_ring_bytes_total(self) -> float:
         return self._comm.int8_ring_bytes_total()
 
+    def ring_time_ms_total(self) -> Dict[str, float]:
+        return self._comm.ring_time_ms_total()
+
     def ring_topology(self) -> str:
         return self._comm.ring_topology()
 

@@ -34,11 +34,105 @@ from __future__ import annotations
 import logging
 from abc import ABC, abstractmethod
 from concurrent.futures import Future
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 logger: logging.Logger = logging.getLogger(__name__)
+
+
+# ------------------------------------------------------------ bfloat16
+# numpy has no bfloat16 and the port does not import ml_dtypes, so a bf16
+# array lives on the host as ``BF16``: a one-field structured dtype over
+# the raw uint16 bits (the bytes the ring carries). Its identity differs
+# from uint16, so a bf16 buffer is never taken for integers, and numpy
+# refuses arithmetic on it, so a fold that forgot to convert raises
+# instead of summing bit patterns. ``.astype`` is NOT refused (it reads
+# the bits as integers): convert only through :func:`bf16_to_f32`,
+# :func:`f32_to_bf16`, :func:`to_dtype` and :func:`fold_into`, which match
+# ml_dtypes bit for bit. Wherever a dtype is spelled (the schedule
+# fingerprint, the ring's per-op preamble) it is named ``bfloat16``
+# (:func:`dtype_name`), as the JAX package names it.
+BF16 = np.dtype([("bfloat16", "<u2")])
+BF16_NAME = "bfloat16"
+
+
+def dtype_name(d: Any) -> str:
+    """numpy's name of a dtype (``float32``), ``bfloat16`` for bf16 in
+    any spelling: :data:`BF16`, the string, ``torch.bfloat16``, or
+    ml_dtypes' type where a process has it."""
+    if isinstance(d, np.dtype) and d == BF16:
+        return BF16_NAME
+    s = str(d)
+    if s.startswith("torch."):  # a torch.dtype, named without importing torch
+        s = s[len("torch."):]
+        return s if s == BF16_NAME else str(np.dtype(s))
+    if s == BF16_NAME:
+        return BF16_NAME
+    return str(np.dtype(d))
+
+
+def host_dtype(d: Any) -> np.dtype:
+    """The host dtype of a dtype in any spelling: :data:`BF16` for
+    bfloat16, numpy's own dtype otherwise."""
+    name = dtype_name(d)
+    return BF16 if name == BF16_NAME else np.dtype(name)
+
+
+def bf16_to_f32(a: np.ndarray) -> np.ndarray:
+    """bf16 bits (a :data:`BF16` or uint16 array) to float32: the bits
+    shifted into the high half, exact."""
+    bits = np.ascontiguousarray(a).view(np.uint16)
+    # One ufunc pass, widening inside the loop (as fast as ml_dtypes).
+    return np.left_shift(bits, np.uint32(16), dtype=np.uint32).view(
+        np.float32)
+
+
+def f32_to_bf16(x: np.ndarray) -> np.ndarray:
+    """float32 to bf16 (a :data:`BF16` array), as ml_dtypes converts:
+    round to nearest, ties to even, on the 16 dropped bits; ±inf and
+    subnormals kept (overflow rounds to inf); NaN becomes the quiet NaN
+    ``0x7FC0`` with its sign."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    bits = x.view(np.uint32)
+    # (bits + 0x7FFF + lsb) >> 16, in place in one scratch array. No
+    # NaN-free input overflows: the largest, -max's 0xFF7FFFFF, plus
+    # 0x8000 is 0xFF807FFF.
+    r = np.right_shift(bits, np.uint32(16))
+    np.bitwise_and(r, np.uint32(1), out=r)
+    np.add(r, np.uint32(0x7FFF), out=r)
+    np.add(r, bits, out=r)
+    np.right_shift(r, np.uint32(16), out=r)
+    out = r.astype(np.uint16)
+    nan = np.isnan(x)
+    if nan.any():
+        out[nan] = ((bits[nan] >> np.uint32(16)) & np.uint32(0x8000)
+                    | np.uint32(0x7FC0)).astype(np.uint16)
+    return out.view(BF16)
+
+
+def to_dtype(buf: Any, dtype: np.dtype, copy: bool = True) -> np.ndarray:
+    """A flat host buffer in ``dtype`` — the bf16-aware spelling of
+    ``buf.astype(dtype, copy=copy)``: a wire buffer widened to its
+    accumulator, or a float buffer rounded to a bf16 wire. A fresh copy
+    unless ``copy`` is off and ``buf`` already is in ``dtype``."""
+    a = np.ravel(np.asarray(buf))
+    if a.dtype == BF16:
+        if dtype == BF16:
+            return a.copy() if copy else a
+        return bf16_to_f32(a).astype(dtype, copy=False)
+    if dtype == BF16:
+        return f32_to_bf16(a.astype(np.float32, copy=False))
+    return a.astype(dtype, copy=copy)
+
+
+def fold_into(dst: np.ndarray, src: np.ndarray) -> None:
+    """``dst += src`` in ``dst``'s dtype. For bf16 it is ml_dtypes' sum:
+    the float32 sum of the two, rounded to bf16 once."""
+    if dst.dtype == BF16:
+        dst[...] = f32_to_bf16(bf16_to_f32(dst) + bf16_to_f32(src))
+    else:
+        dst += src
 
 
 def _upcast_buffers(buffers: Sequence[Any],
@@ -50,10 +144,9 @@ def _upcast_buffers(buffers: Sequence[Any],
     out = []
     for b, d in zip(buffers, orig_dtypes):
         if isinstance(b, Int8Wire):
-            out.append(b.dequantize(np.dtype(d)))
+            out.append(b.dequantize(host_dtype(d)))
         else:
-            out.append(np.ravel(np.asarray(b)).astype(np.dtype(d),
-                                                      copy=False))
+            out.append(to_dtype(b, host_dtype(d), copy=False))
     return out
 
 
@@ -187,7 +280,9 @@ class Int8Wire:
         out = (q.reshape(nseg, seg).astype(np.float32)
                * self.scales[:, None]
                + self.zeros[:, None]).reshape(-1)[:n]
-        return out.astype(np.dtype(dtype), copy=False)
+        d = host_dtype(dtype)
+        return (f32_to_bf16(out) if d == BF16
+                else out.astype(d, copy=False))
 
     # -------------------------------------------------- ring wire format
     # Fixed-size payload derivable from (size, seg_elems) alone, so
@@ -389,6 +484,15 @@ class Communicator(ABC):
         ``allreduce_int8_ring_bytes_total`` so the int8 rung's ~4x ring
         saving is observable on its own. Wrappers MUST forward."""
         return 0.0
+
+    def ring_time_ms_total(self) -> Dict[str, float]:
+        """Cumulative ms the allreduce rings spent in their host fold
+        (``fold``: widen, dequantize, add) and blocked on the transport
+        (``transfer``), surfaced by the Manager as
+        ``allreduce_ring_fold_ms_total`` and
+        ``allreduce_ring_transfer_ms_total``. Backends without a host
+        ring report zeros; wrappers MUST forward."""
+        return {"fold": 0.0, "transfer": 0.0}
 
     def ring_topology(self) -> str:
         """Human-readable transport topology of the wire ops:
@@ -716,6 +820,9 @@ class ErrorSwallowingCommunicator(Communicator):
     def int8_ring_bytes_total(self) -> float:
         return self._comm.int8_ring_bytes_total()
 
+    def ring_time_ms_total(self) -> Dict[str, float]:
+        return self._comm.ring_time_ms_total()
+
     def ring_topology(self) -> str:
         return self._comm.ring_topology()
 
@@ -860,6 +967,9 @@ class ManagedCommunicator(Communicator):
 
     def int8_ring_bytes_total(self) -> float:
         return self._comm.int8_ring_bytes_total()
+
+    def ring_time_ms_total(self) -> Dict[str, float]:
+        return self._comm.ring_time_ms_total()
 
     def ring_topology(self) -> str:
         return self._comm.ring_topology()

@@ -14,25 +14,30 @@ the optimizer update applies only if every rank of every group succeeded.
     if manager.should_commit():    # drain work, apply a staged heal, vote
         optimizer.step()           # in place, only on a committed step
 
-What this sub-slice carries, branch for branch with the JAX Manager:
+What this carries, branch for branch with the JAX Manager:
 ``step`` (:1086), ``_async_quorum_inner`` (:1215) with the single-donor
 resumable heal and its donor failover, ``allreduce`` (:1953) on the
-synchronous bucketed host path with an exact f32 wire, ``should_commit``
-(:3882), ``report_error`` with ring poisoning and the recovery rendezvous,
-``state_dict``/``load_state_dict``, the accessors and ``shutdown``. The
-cross-step overlap engine, the sharded update, wire quantization, state
-digests, the adaptive policy, rebalancing, degraded mode, the RAM tier,
-publication, preemption drains and striped heals are later sub-slices;
-their constructor arguments are not accepted.
+synchronous bucketed host path with its wire rungs — exact f32, bf16, and
+int8 with error feedback, quantized on the device or on the host —
+``should_commit`` (:3882), ``report_error`` with ring poisoning and the
+recovery rendezvous, ``state_dict``/``load_state_dict`` with the policy
+fields a healer adopts, the accessors and ``shutdown``. The cross-step
+overlap engine, the sharded update, state digests, the policy controller,
+rebalancing, degraded mode, the RAM tier, publication, preemption drains
+and striped heals are later sub-slices; their constructor arguments are
+not accepted.
 
-The device side of the allreduce is torch: each bucket's gradient leaves
-are packed on the device into one buffer per dtype, copied into a pinned
-host buffer without blocking, and handed to the ring as soon as the copy
-lands, while later buckets' copies continue. The reduced buffer is scaled
-by 1/n on the host (the same IEEE division the JAX package runs) and
-copied back to the leaves' device. The bucket schedule is derived from
-leaf metadata exactly as the JAX package derives it, so every rank — and a
-JAX rank on the same ring — agrees on the geometry.
+The device side of the allreduce is torch, on the gradients' device (a
+CUDA card, or the CPU in tests): each bucket's gradient leaves are packed
+into one buffer per (dtype, wire dtype) pair — cast to bf16 and carried as
+int16 bits on the bf16 rung, quantized with the error-feedback residual
+into the ``Int8Wire`` payload on the int8 rung — copied into a pinned host
+buffer without blocking, and handed to the ring as soon as the copy lands,
+while later buckets' copies continue. The reduced buffer is scaled by 1/n
+on the host (the same IEEE division the JAX package runs) and copied back
+to the leaves' device. The bucket schedule is derived from leaf metadata
+exactly as the JAX package derives it, so every rank — and a JAX rank on
+the same ring — agrees on the geometry.
 """
 
 from __future__ import annotations
@@ -50,11 +55,15 @@ from typing import Any, Callable, Dict, List, Optional, TypeVar, cast
 import numpy as np
 import torch
 
+from torchft_tpu_torch import policy as policy_mod
 from torchft_tpu_torch import tracing as tracing_mod
 from torchft_tpu_torch._native import (ManagerClient, ManagerServer, Store,
                                        StoreClient)
 from torchft_tpu_torch.checkpointing import CheckpointServer
-from torchft_tpu_torch.communicator import Communicator, CommunicatorError
+from torchft_tpu_torch.communicator import (BF16, INT8_SEG_ELEMS,
+                                            Communicator, CommunicatorError,
+                                            Int8Wire, dtype_name, host_dtype,
+                                            to_dtype)
 from torchft_tpu_torch.retry import RetryPolicy, RetryStats
 from torchft_tpu_torch.utils import (advertise_host, div_by_count,
                                      tree_flatten, tree_unflatten)
@@ -92,8 +101,23 @@ class Manager:
             one when omitted) and the global lighthouse (env
             ``TORCHFT_LIGHTHOUSE``).
         allreduce_bucket_bytes: target bucket size of the pipelined host
-            allreduce.
+            allreduce, in wire bytes.
+        allreduce_wire_dtype: ``torch.bfloat16`` (or ``"bfloat16"``)
+            puts float32 gradients on the ring as bf16: each
+            contribution is rounded once, the sum and 1/n stay float32.
         overlap_steps: only 0 (synchronous commit) is ported.
+        device_quantize: on the int8 rung, quantize on the gradients'
+            device so the device->host copy moves the int8 payload
+            (default on; env ``TORCHFT_DEVICE_QUANT=0`` turns it off).
+            Off, float32 crosses and the host quantizes; the payloads
+            and residuals are bitwise the same. Off also moves a bf16
+            wire's cast to the host.
+        policy: an :class:`~torchft_tpu_torch.policy.FTPolicy` that
+            selects the wire rung (``policy.POLICIES["sync-int8"]`` for
+            int8 + error feedback); it wins over
+            ``allreduce_wire_dtype``, rides :meth:`state_dict`, and a
+            healer adopts the donor's. Policies with overlap or DiLoCo
+            are not ported.
         auth_token: shared job secret (env ``TORCHFT_AUTH_TOKEN``) for the
             checkpoint server and Kill RPCs.
         checkpoint_bind_host: interface of the checkpoint server (env
@@ -117,7 +141,10 @@ class Manager:
         store_addr: Optional[str] = None,
         lighthouse_addr: Optional[str] = None,
         allreduce_bucket_bytes: int = 4 << 20,
+        allreduce_wire_dtype: Optional[Any] = None,
         overlap_steps: int = 0,
+        device_quantize: Optional[bool] = None,
+        policy: Optional[policy_mod.FTPolicy] = None,
         auth_token: Optional[str] = None,
         checkpoint_bind_host: Optional[str] = None,
         _manager_client: Optional[ManagerClient] = None,
@@ -129,6 +156,35 @@ class Manager:
         self._comm = comm
         self._tracer = tracing_mod.Tracer()
         self._bucket_bytes = max(int(allreduce_bucket_bytes), 1)
+        self._wire_dtype: Optional[np.dtype] = (
+            host_dtype(allreduce_wire_dtype)
+            if allreduce_wire_dtype is not None else None)
+        # The wire rung lives in one FTPolicy. An explicit policy= wins
+        # over allreduce_wire_dtype and makes the manager policy-aware:
+        # its state dict carries the policy, a healer adopts the donor's,
+        # and the rendezvous fingerprint says "dynamic".
+        if policy is not None and not isinstance(policy,
+                                                 policy_mod.FTPolicy):
+            raise TypeError(f"policy must be an FTPolicy, got {policy!r}")
+        self._policy_aware = policy is not None
+        if policy is None:
+            policy = policy_mod.from_knobs(0, self._wire_dtype)
+        _check_ported(policy)
+        self._policy = policy
+        if self._policy_aware:
+            self._install_policy_knobs(policy)
+        # int8 + error-feedback state: per-chunk residuals folded into the
+        # next contribution before it is quantized, keyed by (schedule
+        # fingerprint, bucket, chunk) — on the host for host quantizing,
+        # on the gradients' device for the device quantize-pack. Mutated
+        # only on the caller thread; flushed on a wire-rung change.
+        self._ef_residuals: Dict[tuple, np.ndarray] = {}
+        self._dev_residuals: Dict[tuple, torch.Tensor] = {}
+        if device_quantize is None:
+            device_quantize = os.environ.get(
+                "TORCHFT_DEVICE_QUANT", "1").strip().lower() \
+                not in ("0", "false")
+        self._device_quant = bool(device_quantize)
         self._user_load_state_dict = load_state_dict
         self._user_state_dict = state_dict
         self._min_replica_size = min_replica_size
@@ -166,7 +222,9 @@ class Manager:
             "allreduce_fetch_dispatch_ms_total": 0.0,
             "allreduce_fetch_wait_ms_total": 0.0,
             "allreduce_ring_ms_total": 0.0, "allreduce_put_ms_total": 0.0,
-            "allreduce_d2h_wire_bytes_total": 0.0, "allreduce_inflight": 0,
+            "allreduce_d2h_wire_bytes_total": 0.0,
+            "allreduce_wire_bytes_total": 0.0, "allreduce_inflight": 0,
+            "wire_quant_residual_bytes": 0.0, "policy_switches_total": 0,
             "commit_count": 0, "commit_ms_total": 0.0,
             "committed_steps": 0, "aborted_steps": 0,
         }
@@ -248,7 +306,8 @@ class Manager:
 
     def _init_observability(self) -> None:
         self._tracer.set_context(replica_id=self._replica_id,
-                                 step=self._step, policy_name="sync-f32")
+                                 step=self._step,
+                                 policy_name=self._policy.name)
         attach = getattr(self._ckpt_server, "attach_observability", None)
         if attach is not None:
             attach(tracer=self._tracer, metrics_fn=self.metrics,
@@ -334,8 +393,11 @@ class Manager:
                              None)
             if setter is not None:
                 # The JAX package's spelling, so mixed rings agree.
+                wire_fp = ("dynamic" if self._policy_aware else
+                           dtype_name(self._wire_dtype)
+                           if self._wire_dtype is not None else "None")
                 setter(f"bucket_bytes={self._bucket_bytes};"
-                       "wire_dtype=None;degraded=0;payload=wire-v5")
+                       f"wire_dtype={wire_fp};degraded=0;payload=wire-v5")
             reconf_t0 = time.perf_counter()
             self._comm.configure(store_prefixed, q.replica_rank,
                                  q.replica_world_size)
@@ -461,10 +523,12 @@ class Manager:
     def _host_allreduce_pipelined(self, tree: Any, leaves: list,
                                   treedef: Any) -> Future:
         """Three overlapped stages per bucket: (1) on the caller thread,
-        pack every bucket on the device and start its copy into pinned
-        host memory; then per bucket, in order, wait for its copy and hand
-        it to the comm worker; (2) the ring; (3) on the put thread, 1/n on
-        the host and the copy back to the device."""
+        pack buckets on the device and start their copies into pinned
+        host memory — every bucket up front, or a window of them
+        (``TORCHFT_ALLREDUCE_STAGE_AHEAD``) — then per bucket, in order,
+        wait for its copy, quantize on the host where the int8 rung does
+        so, and hand it to the comm worker; (2) the ring; (3) on the put
+        thread, 1/n on the host and the copy back to the device."""
         n = max(self.num_participants(), 1)
         participating = self.is_participating()
         ar_t0 = time.perf_counter()
@@ -521,23 +585,40 @@ class Manager:
                         settle_exception(e2)
             return cb
 
-        staged = (self._stage_all(sched, leaves) if participating
-                  else None)
+        n_buckets = len(sched.chunks)
+        window = _stage_ahead_window()
+        staged: list = [None] * n_buckets
+        next_to_stage = 0
+        int8 = self._policy.wire == policy_mod.WIRE_INT8
+
+        def stage_through(hi: int) -> None:
+            nonlocal next_to_stage
+            while next_to_stage < min(hi, n_buckets):
+                staged[next_to_stage] = self._stage_bucket(
+                    sched, next_to_stage, leaves, int8)
+                next_to_stage += 1
+
         for b, chunks in enumerate(sched.chunks):
-            if staged is not None:
+            if participating:
+                stage_through(n_buckets if window is None
+                              else b + 1 + window)
                 bufs = self._wait_bucket(staged[b], bucket=b)
                 staged[b] = None  # release the packed device copies
+                if int8:
+                    bufs = self._int8_quantize_bucket(sched, b, chunks,
+                                                      bufs)
             else:
-                # Healers and spares: zeros, from the shared schedule.
-                bufs = [np.zeros(c.total, c.orig) for c in chunks]
+                # Healers and spares: zeros in this step's wire format,
+                # from the shared schedule.
+                bufs = [_zero_wire_chunk(c, int8) for c in chunks]
             self._comm.allreduce_wire(
-                bufs, [str(c.orig) for c in chunks], op="sum"
+                bufs, [dtype_name(c.orig) for c in chunks], op="sum"
             ).add_done_callback(on_bucket(chunks, time.perf_counter()))
         return self.wrap_future(agg, default=tree)
 
     def _set_wire_tag(self) -> None:
         """Per-op preamble facts of the ring (the JAX package's values for
-        a sync-f32 step): payload kind ``step``, unweighted fold."""
+        a synchronous step): payload kind ``step``, unweighted fold."""
         setter = getattr(self._comm, "set_wire_tag", None)
         if setter is not None:
             setter("step")
@@ -547,74 +628,180 @@ class Manager:
 
     def _get_schedule(self, treedef: Any, leaves: list
                       ) -> "_AllreduceSchedule":
-        metas = tuple((tuple(leaf.shape), str(_np_dtype(leaf)))
-                      for leaf in leaves)
-        key = (treedef, metas, self._bucket_bytes)
+        metas = tuple((tuple(leaf.shape if isinstance(leaf, torch.Tensor)
+                             else np.shape(leaf)),
+                       dtype_name(_np_dtype(leaf))) for leaf in leaves)
+        wire = (dtype_name(self._wire_dtype)
+                if self._wire_dtype is not None else None)
+        key = (treedef, metas, self._bucket_bytes, wire)
         sched = self._sched_cache.get(key)
         if sched is None:
             if len(self._sched_cache) >= 8:
                 self._sched_cache.clear()
                 self._pinned.clear()
-            sched = _derive_schedule(metas, self._bucket_bytes)
+            sched = _derive_schedule(metas, self._bucket_bytes, wire)
             self._sched_cache[key] = sched
         return sched
 
-    def _stage_all(self, sched: "_AllreduceSchedule", leaves: list
-                   ) -> list:
-        """Stage 1: pack every bucket's device leaves (one ``torch.cat``
-        per chunk) and start each packed buffer's copy into its pinned
-        host buffer without blocking. Host leaves pack on the host."""
+    def _stage_bucket(self, sched: "_AllreduceSchedule", bucket: int,
+                      leaves: list, int8: bool) -> list:
+        """Stage 1 for one bucket: pack each chunk of tensor leaves on
+        their device and start its copy into a pinned host buffer
+        without blocking. A record's kind says what crosses:
+
+        * ``pack`` — the chunk in its wire dtype (bf16 as int16 bits);
+        * ``int8dev`` — the int8 rung's ``Int8Wire`` payload, quantized
+          on the device with the device-resident residual folded in
+          (:func:`_device_quantize_pack`), about 1/4 of the float32
+          bytes; the new residual stays on the device;
+        * ``hostcast`` — ``device_quantize`` off with a narrower wire:
+          the chunk in its own dtype, cast on the host;
+        * ``host`` — a chunk holding numpy leaves, packed on the host
+          in its wire dtype.
+
+        Returns ``(chunk, kind, host buffer, device buffer, copy
+        event)`` per chunk for :meth:`_wait_bucket`."""
         t0 = time.perf_counter()
-        staged = []
-        with self._tracer.span("fetch_dispatch", buckets=len(sched.chunks)):
-            for b, chunks in enumerate(sched.chunks):
-                recs = []
-                for j, c in enumerate(chunks):
-                    ls = [leaves[i] for i in c.idx]
-                    dev = (ls and all(isinstance(x, torch.Tensor)
-                                      and x.is_cuda for x in ls))
-                    if not dev:
-                        recs.append((c, _host_pack(ls, c.orig), None, None))
-                        continue
-                    with torch.no_grad():
-                        packed = torch.cat([x.detach().reshape(-1)
-                                            for x in ls])
-                    key = (sched.fingerprint, b, j)
-                    host = self._pinned.get(key)
-                    if host is None or host.numel() != c.total:
-                        host = torch.empty(c.total, dtype=packed.dtype,
-                                           pin_memory=True)
-                        self._pinned[key] = host
-                    host.copy_(packed, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                    recs.append((c, host, packed, done))
-                staged.append(recs)
+        recs = []
+        dev_quant = False
+        with self._tracer.span("fetch_dispatch", bucket=bucket):
+            for j, c in enumerate(sched.chunks[bucket]):
+                ls = [leaves[i] for i in c.idx]
+                if not (ls and all(isinstance(x, torch.Tensor)
+                                   for x in ls)):
+                    recs.append((c, "host", _host_pack(ls, c.wire), None,
+                                 None))
+                    continue
+                if (int8 and self._device_quant and c.total
+                        and np.issubdtype(c.orig, np.floating)):
+                    kind = "int8dev"
+                    dev_quant = True
+                    key = (sched.fingerprint, bucket, j)
+                    self._prune_dev_residuals(sched.fingerprint)
+                    res = self._dev_residuals.get(key)
+                    if (res is None or res.numel() != c.total
+                            or res.device != ls[0].device):
+                        res = torch.zeros(c.total, dtype=torch.float32,
+                                          device=ls[0].device)
+                    packed, new_res = _device_quantize_pack(ls, res)
+                    # Banked at quantize time, as the host path banks
+                    # its residual: an aborted step keeps it either way.
+                    self._dev_residuals[key] = new_res
+                else:
+                    wire = c.wire
+                    kind = "pack"
+                    if not self._device_quant and wire != c.orig:
+                        wire, kind = c.orig, "hostcast"
+                    packed = _pack_leaves(ls, wire)
+                host, done = self._start_copy(packed,
+                                              (sched.fingerprint, bucket, j))
+                recs.append((c, kind, host, packed, done))
+            if dev_quant:
+                self._update_residual_gauge()
         ms = (time.perf_counter() - t0) * 1e3
         self._record(allreduce_fetch_dispatch_ms_total=ms,
                      allreduce_fetch_ms_total=ms)
-        return staged
+        return recs
+
+    def _start_copy(self, packed: torch.Tensor, key: tuple) -> tuple:
+        """Start the copy of a packed device buffer into its reused
+        pinned host buffer; returns ``(host tensor, CUDA event)``. A CPU
+        buffer is its own host copy (no event)."""
+        if not packed.is_cuda:
+            return packed, None
+        host = self._pinned.get(key)
+        if (host is None or host.numel() != packed.numel()
+                or host.dtype != packed.dtype):
+            host = torch.empty(packed.numel(), dtype=packed.dtype,
+                               pin_memory=True)
+            self._pinned[key] = host
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
     def _wait_bucket(self, recs: list, bucket: int) -> list:
         """Stage 1b: block until this bucket's host copies landed; return
-        the ring buffers (numpy views of the pinned memory)."""
+        the ring buffers — numpy views of the pinned memory, bf16 viewed
+        back as :data:`~torchft_tpu_torch.communicator.BF16`, an
+        ``Int8Wire`` decoded from a device-quantized payload, or the
+        host cast of a ``hostcast`` chunk."""
         t0 = time.perf_counter()
         bufs = []
         d2h = 0
-        with self._tracer.span("fetch_wait", bucket=bucket):
-            for c, host, packed, done in recs:
-                if done is None:
+        with self._tracer.span("fetch_wait", bucket=bucket) as wait_span:
+            for c, kind, host, _packed, done in recs:
+                if kind == "host":
                     bufs.append(host)
                     continue
-                done.synchronize()
+                if done is not None:
+                    done.synchronize()
                 buf = host.numpy()
                 d2h += buf.nbytes
-                bufs.append(buf)
+                if kind == "int8dev":
+                    bufs.append(Int8Wire.from_bytes(buf, c.total))
+                elif kind == "hostcast":
+                    bufs.append(to_dtype(buf, c.wire))
+                elif c.wire == BF16:
+                    bufs.append(buf.view(BF16))
+                else:
+                    bufs.append(buf)
+            wait_span.set(bytes=d2h)
         ms = (time.perf_counter() - t0) * 1e3
         self._record(allreduce_fetch_wait_ms_total=ms,
                      allreduce_fetch_ms_total=ms,
+                     allreduce_wire_bytes_total=float(d2h),
                      allreduce_d2h_wire_bytes_total=float(d2h))
         return bufs
+
+    def _int8_quantize_bucket(self, sched: "_AllreduceSchedule", b: int,
+                              chunks: list, bufs: list) -> list:
+        """The int8 + error-feedback rung on the host: fold the chunk's
+        banked residual into this step's contribution, quantize it per
+        segment (``Int8Wire.quantize``), and bank ``contribution -
+        dequant(q)`` for the next step. Device-quantized chunks arrive
+        as ``Int8Wire`` already; non-float chunks ride the exact ring.
+        Residuals of another schedule fingerprint are dropped first."""
+        if any(k[0] != sched.fingerprint for k in self._ef_residuals):
+            self._ef_residuals = {
+                k: v for k, v in self._ef_residuals.items()
+                if k[0] == sched.fingerprint}
+        out = []
+        for j, (c, buf) in enumerate(zip(chunks, bufs)):
+            if (isinstance(buf, Int8Wire)
+                    or not np.issubdtype(c.orig, np.floating)):
+                out.append(buf)
+                continue
+            key = (sched.fingerprint, b, j)
+            v = np.ravel(np.asarray(buf)).astype(np.float32, copy=False)
+            res = self._ef_residuals.get(key)
+            if res is not None and res.size == v.size:
+                v = v + res
+            w = Int8Wire.quantize(v)
+            res = v - w.dequantize(np.float32)
+            # A non-finite contribution quantizes to zero; its residual
+            # would poison every later step, so it is dropped.
+            if not np.isfinite(res).all():
+                res[~np.isfinite(res)] = 0.0
+            self._ef_residuals[key] = res
+            out.append(w)
+        self._update_residual_gauge()
+        return out
+
+    def _prune_dev_residuals(self, fingerprint: str) -> None:
+        """Keep the device residual store to the current schedule: a
+        stale residual would fold into the wrong elements."""
+        if any(k[0] != fingerprint for k in self._dev_residuals):
+            self._dev_residuals = {
+                k: v for k, v in self._dev_residuals.items()
+                if k[0] == fingerprint}
+
+    def _update_residual_gauge(self) -> None:
+        """``wire_quant_residual_bytes``: host plus device residuals."""
+        total = sum(r.nbytes for r in self._ef_residuals.values())
+        total += sum(r.numel() * 4 for r in self._dev_residuals.values())
+        with self._metrics_lock:
+            self._metrics["wire_quant_residual_bytes"] = float(total)
 
     def prepare_commit(self) -> None:
         """Drain this step's in-flight work and apply a staged heal."""
@@ -717,6 +904,10 @@ class Manager:
             out = dict(self._metrics)
         out["allreduce_ring_wire_bytes_total"] = float(
             getattr(self._comm, "ring_bytes_total", lambda: 0.0)())
+        split = getattr(self._comm, "ring_time_ms_total", dict)()
+        out["allreduce_ring_fold_ms_total"] = float(split.get("fold", 0.0))
+        out["allreduce_ring_transfer_ms_total"] = float(
+            split.get("transfer", 0.0))
         return out
 
     # ----------------------------------------------------------- state dicts
@@ -725,14 +916,57 @@ class Manager:
         return {"user": self._user_state_dict(), "torchft": self.state_dict()}
 
     def state_dict(self) -> Dict[str, int]:
-        """Manager metadata that rides along with user checkpoints."""
-        return {"step": self._step,
-                "batches_committed": self._batches_committed}
+        """Manager metadata that rides along with user checkpoints; a
+        policy-aware manager adds its policy's knobs, so a healer or a
+        cold start adopts the job's wire rung."""
+        out = {"step": self._step,
+               "batches_committed": self._batches_committed}
+        if self._policy_aware:
+            out.update(self._policy.to_state())
+        return out
 
     def load_state_dict(self, state_dict: Dict[str, int]) -> None:
         with self._metrics_lock:
             self._step = int(state_dict["step"])
             self._batches_committed = int(state_dict["batches_committed"])
+        # A policy-aware manager adopts the donor's policy here, on the
+        # quorum thread before this step's allreduce, so a healer's zero
+        # contribution is already in the fleet's wire format.
+        if self._policy_aware and "policy_wire" in state_dict:
+            p = policy_mod.FTPolicy.from_state(state_dict,
+                                               ladder=policy_mod.LADDER)
+            if p.knobs() != self._policy.knobs():
+                self._install_policy(p, reason="adopted with restored state")
+
+    # ---------------------------------------------------------------- policy
+
+    def policy(self) -> policy_mod.FTPolicy:
+        """The policy in force (its wire rung selects the allreduce's)."""
+        return self._policy
+
+    def _install_policy_knobs(self, p: policy_mod.FTPolicy) -> None:
+        wd = p.wire_dtype()
+        self._wire_dtype = host_dtype(wd) if wd is not None else None
+
+    def _install_policy(self, p: policy_mod.FTPolicy, reason: str) -> None:
+        """Adopt ``p``: its knobs, and a flush of both residual stores
+        when the wire rung changes — the int8 rung's residuals belong to
+        the outgoing format and must never fold into another's."""
+        _check_ported(p)
+        old = self._policy
+        wire_changed = old.wire != p.wire
+        self._policy = p
+        self._install_policy_knobs(p)
+        self._tracer.set_context(policy_name=p.name)
+        if wire_changed:
+            self._ef_residuals.clear()
+            self._dev_residuals.clear()
+        with self._metrics_lock:
+            self._metrics["policy_switches_total"] += 1
+            if wire_changed:
+                self._metrics["wire_quant_residual_bytes"] = 0.0
+        logger.info("%s policy %s -> %s at step %d (%s)", self._replica_id,
+                    old.name, p.name, self._step, reason)
 
     # ------------------------------------------------------------- accessors
 
@@ -779,34 +1013,37 @@ class Manager:
 # --------------------------------------------------------------- schedule
 
 
-_TORCH_TO_NP = {
-    torch.float32: np.float32, torch.float64: np.float64,
-    torch.float16: np.float16, torch.int8: np.int8, torch.int16: np.int16,
-    torch.int32: np.int32, torch.int64: np.int64, torch.uint8: np.uint8,
-    torch.bool: np.bool_,
-}
-
-
 def _np_dtype(leaf: Any) -> np.dtype:
-    """numpy dtype a leaf crosses the ring in. bfloat16 leaves need the
-    bf16 wire, which is not ported."""
+    """Host dtype a leaf crosses the ring in (bfloat16 as
+    :data:`~torchft_tpu_torch.communicator.BF16`)."""
     if isinstance(leaf, torch.Tensor):
-        try:
-            return np.dtype(_TORCH_TO_NP[leaf.dtype])
-        except KeyError:
-            raise TypeError(f"allreduce of {leaf.dtype} leaves is not "
-                            "ported (exact f32/int wire only)") from None
+        return host_dtype(leaf.dtype)
     return np.asarray(leaf).dtype
+
+
+def _torch_dtype(d: np.dtype) -> torch.dtype:
+    """The torch dtype of a host dtype."""
+    if d == BF16:
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, d)).dtype
+
+
+def _check_ported(p: policy_mod.FTPolicy) -> None:
+    if p.overlap_steps or p.diloco:
+        raise ValueError(f"policy {p.name!r}: cross-step overlap and DiLoCo "
+                         "are not ported yet")
 
 
 class _ChunkPlan:
     """Geometry of one packed ring chunk: the leaves (by flat index) that
-    concatenate into one contiguous 1-D buffer of one dtype."""
+    concatenate into one contiguous 1-D buffer of one (accumulator, wire)
+    dtype pair."""
 
-    __slots__ = ("orig", "idx", "sizes", "shapes", "total")
+    __slots__ = ("orig", "wire", "idx", "sizes", "shapes", "total")
 
-    def __init__(self, orig: np.dtype) -> None:
+    def __init__(self, orig: np.dtype, wire: np.dtype) -> None:
         self.orig = orig
+        self.wire = wire
         self.idx: list = []
         self.sizes: list = []
         self.shapes: list = []
@@ -823,14 +1060,34 @@ class _AllreduceSchedule:
         self.fingerprint = fingerprint
 
 
-def _derive_schedule(metas: tuple, bucket_bytes: int) -> _AllreduceSchedule:
+def _wire_pair(dtype: Any, wire: Optional[np.dtype]) -> tuple:
+    """(accumulator, wire) dtype pair of a leaf, from metadata: the wire
+    dtype applies to float leaves wider than it. bf16 leaves keep their
+    dtype on every rung: ml_dtypes' bfloat16, which the JAX package
+    decides by, is not a numpy floating type, and neither is
+    :data:`~torchft_tpu_torch.communicator.BF16`."""
+    orig = host_dtype(dtype)
+    if (wire is not None and np.issubdtype(orig, np.floating)
+            and orig.itemsize > wire.itemsize):
+        return orig, wire
+    return orig, orig
+
+
+def _derive_schedule(metas: tuple, bucket_bytes: int,
+                     wire_dtype: Optional[Any] = None
+                     ) -> _AllreduceSchedule:
     """Bucket + chunk schedule from per-leaf (shape, dtype) metadata only,
-    as the JAX package derives it with no wire dtype: participants,
-    healers and spares must produce identical geometry or the ring wedges.
-    Buckets close once they reach ``bucket_bytes``; within a bucket,
-    leaves group into one chunk per dtype in first-occurrence order."""
-    adv = [int(np.prod(shape) or 1) * np.dtype(dt).itemsize
-           for shape, dt in metas]
+    as the JAX package derives it: participants, healers and spares must
+    produce identical geometry or the ring wedges. Buckets are sized in
+    wire bytes and close once they reach ``bucket_bytes``; within a
+    bucket, leaves group into one chunk per (accumulator, wire) dtype
+    pair in first-occurrence order. The fingerprint spells each chunk
+    ``orig:wire:sizes`` with numpy's dtype names (``bfloat16`` for
+    bf16), as the JAX package does."""
+    wire = host_dtype(wire_dtype) if wire_dtype is not None else None
+    pairs = [_wire_pair(dt, wire) for _, dt in metas]
+    adv = [int(np.prod(shape) or 1) * pairs[i][1].itemsize
+           for i, (shape, _) in enumerate(metas)]
     buckets: list = []
     cur: list = []
     cur_bytes = 0
@@ -844,34 +1101,126 @@ def _derive_schedule(metas: tuple, bucket_bytes: int) -> _AllreduceSchedule:
         buckets.append(cur)
     chunks: list = []
     for idx in buckets:
-        by_dtype: Dict[str, _ChunkPlan] = {}
+        by_key: Dict[tuple, _ChunkPlan] = {}
         cs: list = []
         for i in idx:
-            shape, dt = metas[i]
-            c = by_dtype.get(dt)
+            orig, wdt = pairs[i]
+            key = (dtype_name(orig), dtype_name(wdt))
+            c = by_key.get(key)
             if c is None:
-                c = by_dtype[dt] = _ChunkPlan(np.dtype(dt))
+                c = by_key[key] = _ChunkPlan(orig, wdt)
                 cs.append(c)
             c.idx.append(i)
-            c.sizes.append(int(np.prod(shape)))
-            c.shapes.append(tuple(shape))
+            c.sizes.append(int(np.prod(metas[i][0])))
+            c.shapes.append(tuple(metas[i][0]))
         for c in cs:
             c.total = int(sum(c.sizes))
         chunks.append(cs)
     fingerprint = "wire-v2|" + "|".join(
-        ";".join(f"{c.orig}:{c.orig}:{','.join(map(str, c.sizes))}"
-                 for c in cs)
+        ";".join(f"{dtype_name(c.orig)}:{dtype_name(c.wire)}:"
+                 f"{','.join(map(str, c.sizes))}" for c in cs)
         for cs in chunks)
     return _AllreduceSchedule(buckets, chunks, fingerprint)
 
 
-def _host_pack(leaves: list, dtype: np.dtype) -> np.ndarray:
-    """One fresh contiguous host buffer of host leaves (CPU tensors or
-    numpy) — the ring reduces it in place."""
+def _host_pack(leaves: list, wire: np.dtype) -> np.ndarray:
+    """One fresh contiguous host buffer of host leaves (tensors or numpy)
+    in the wire dtype — the ring reduces it in place."""
     parts = [np.ravel(x.detach().numpy() if isinstance(x, torch.Tensor)
                       else np.asarray(x)) for x in leaves]
-    return np.concatenate(parts).astype(dtype, copy=False) if parts \
-        else np.empty(0, dtype)
+    if not parts:
+        return np.empty(0, wire)
+    flat = np.concatenate(parts)
+    return flat if flat.dtype == wire else to_dtype(flat, wire)
+
+
+def _pack_leaves(leaves: list, wire: np.dtype) -> torch.Tensor:
+    """The chunk's tensor leaves as one flat tensor in the wire dtype, on
+    their device (``_pack_leaves``, JAX :5189): a concat and a cast; bf16
+    is carried as its int16 bits, numpy's view of which is
+    :data:`~torchft_tpu_torch.communicator.BF16`."""
+    with torch.no_grad():
+        flat = torch.cat([x.detach().reshape(-1) for x in leaves])
+        flat = flat.to(_torch_dtype(wire))
+        return flat.view(torch.int16) if wire == BF16 else flat
+
+
+def _device_quantize_pack(leaves: list, residual: torch.Tensor,
+                          seg_elems: int = INT8_SEG_ELEMS) -> tuple:
+    """The int8 rung's quantize-pack on the leaves' device
+    (``_device_quantize_pack``, JAX :5313), operation for operation in
+    float32: concat, upcast, the residual fold, the per-segment quantize
+    with a power-of-two scale, and the new residual. Returns
+    ``(payload, new residual)``: the payload is one uint8 tensor laid out
+    as ``Int8Wire.to_bytes`` (``scales | zeros | q``, little-endian), the
+    residual ``v - dequant(q)`` with non-finite entries zeroed.
+
+    Bitwise equal to ``Int8Wire.quantize`` on the host: min, max, the
+    subtractions, the divisions and the round (half to even, as
+    ``np.rint``) are exact or round once, the scale comes from exponent
+    bits, and ``q * scale`` is exact. The divisors are tensors on the
+    device: CUDA torch divides by a host scalar as a multiply by its
+    reciprocal, which rounds differently."""
+    with torch.no_grad():
+        v = torch.cat([x.detach().reshape(-1).to(torch.float32)
+                       for x in leaves]) + residual
+        n = v.numel()
+        nseg = max(1, -(-n // seg_elems))
+        pad = nseg * seg_elems - n
+        # Pad with the last element: it belongs to the last segment, so
+        # the padded min/max are the true segment min/max.
+        vp = torch.cat([v, v[n - 1].expand(pad)]) if pad else v
+        m = vp.view(nseg, seg_elems)
+        lo = m.amin(dim=1)
+        hi = m.amax(dim=1)
+        zero = (hi + lo) / hi.new_full((), 2.0)
+        s0 = (hi - lo) / hi.new_full((), 254.0)
+        finite = torch.isfinite(zero) & torch.isfinite(s0)
+        ok = finite & (s0 > 0)
+        zeros = torch.where(finite, zero, 0.0)
+        # Smallest power of two >= s0 from its exponent bits; s0 > 0 so
+        # the sign bit is clear and int32 holds the bits.
+        bits = torch.where(ok, s0, 1.0).view(torch.int32)
+        e = (bits >> 23) + ((bits & 0x7FFFFF) != 0).to(torch.int32)
+        e = e.clamp(1, 254)
+        scales = torch.where(ok, (e << 23).view(torch.float32), 0.0)
+        qf = torch.clamp(torch.round((m - zeros[:, None]) / scales[:, None]),
+                         -127, 127)
+        qm = torch.where(scales[:, None] > 0, qf, 0.0).to(torch.int8)
+        deq = (qm.to(torch.float32) * scales[:, None]
+               + zeros[:, None]).reshape(-1)[:n]
+        new_res = v - deq
+        new_res = torch.where(torch.isfinite(new_res), new_res, 0.0)
+        payload = torch.cat([scales.view(torch.uint8),
+                             zeros.view(torch.uint8),
+                             qm.reshape(-1)[:n].view(torch.uint8)])
+    return payload, new_res
+
+
+def _stage_ahead_window() -> Optional[int]:
+    """How many buckets beyond the one being waited on may hold packed
+    copies on the device: ``None`` (the default) stages every bucket up
+    front, ``TORCHFT_ALLREDUCE_STAGE_AHEAD=<K>`` caps it for jobs tight on
+    device memory (a value that is not an integer caps it at 0)."""
+    raw = os.environ.get("TORCHFT_ALLREDUCE_STAGE_AHEAD", "").strip()
+    if not raw:
+        return None
+    try:
+        return max(int(raw), 0)
+    except ValueError:
+        logger.warning("non-integer TORCHFT_ALLREDUCE_STAGE_AHEAD=%r; "
+                       "treating as 0 (no stage-ahead)", raw)
+        return 0
+
+
+def _zero_wire_chunk(c: _ChunkPlan, int8: bool) -> Any:
+    """A healer's or spare's zero contribution to one chunk, in this
+    step's wire format: ``Int8Wire`` zeros for float chunks on the int8
+    rung, zeros of the wire dtype otherwise (bf16 zero is all-zero
+    bits)."""
+    if int8 and np.issubdtype(c.orig, np.floating):
+        return Int8Wire.zeros_like(c.total)
+    return np.zeros(c.total, c.wire)
 
 
 def _put_bucket_chunks(chunks: list, reduced: list, leaves: list,
@@ -884,7 +1233,9 @@ def _put_bucket_chunks(chunks: list, reduced: list, leaves: list,
         arr = div_by_count(np.asarray(arr), n)
         ref = leaves[c.idx[0]] if c.idx else None
         if isinstance(ref, torch.Tensor):
-            flat = torch.from_numpy(arr).to(ref.device)
+            flat = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                    if arr.dtype == BF16 else torch.from_numpy(arr))
+            flat = flat.to(ref.device)
             parts = torch.split(flat, c.sizes)
         else:
             parts = np.split(arr, np.cumsum(c.sizes)[:-1])

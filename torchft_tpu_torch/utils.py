@@ -17,15 +17,21 @@ from typing import Any, Iterator, List, Tuple
 import numpy as np
 import torch
 
+from torchft_tpu_torch.communicator import BF16, bf16_to_f32, f32_to_bf16
+
 
 def div_by_count(a: Any, n: int) -> Any:
     """Divide a reduced leaf by the participant count, dtype-aware:
-    true-divide and cast back for floating dtypes (bfloat16 included),
-    floor-divide for integers. Works on tensors and numpy arrays."""
+    true-divide and cast back for floating dtypes (bfloat16 included:
+    a host bf16 array divides in float32 and rounds once, as ml_dtypes
+    does), floor-divide for integers. Works on tensors and numpy
+    arrays."""
     if isinstance(a, torch.Tensor):
         if a.is_floating_point():
             return (a / n).to(a.dtype)
         return a // n
+    if a.dtype == BF16:
+        return f32_to_bf16(bf16_to_f32(a) / np.float32(n))
     if np.issubdtype(a.dtype, np.inexact):
         return (a / n).astype(a.dtype)
     return a // n
