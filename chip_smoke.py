@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                     # every phase, one card
-    python3 chip_smoke.py --phases kernels,sp # a subset of
-                                              # card,kernels,ft,split,sp,wire
+    python3 chip_smoke.py --phases kernels,sp # a subset of card,kernels,
+                                              # ft,split,sp,wire,overlap,shard
 
 Phases:
 
@@ -65,9 +65,36 @@ Phases:
    every step, each rung's error against f32 and its bytes against
    f32's, and that the gradients, results and the int8 residual stay on
    the card.
+7. **overlap** — the ft phase's drill (same lighthouse, model, SIGKILL of
+   group 1 after step 3, restart and heal) with ``OVERLAP_STEPS=1``: each
+   step's exchange drains under the next step's forward and backward, so
+   the kill lands while group 1's step-3 exchange is in flight. Checks:
+   equal state hashes, the restarted group's steps all committed, group
+   0's dropped deferred steps (``overlap_grads_dropped``) at least 1 and
+   equal to its aborted steps, finite losses, kernel launches; logs each
+   group's hidden and drain-wait ms per step.
+8. **shard** — the sharded update: a lighthouse and two groups on this
+   card (``chip_smoke.py --shard-worker``), each with the wire cell's
+   model from one init seed. Each takes three ``FTTrainer`` steps with
+   the sync update on fixed batches, then the same three from the same
+   init params with a fresh ``Manager(shard_update=True)`` (AdamW with
+   ``foreach`` pinned on both). The sharded run exchanges the gradients
+   the sync run recorded at each step, after its own forward and
+   backward, and the phase logs per parameter how many elements of its
+   own gradients differ from them: the fused backward sums dq across k
+   tiles with f32 atomics, whose order can change between two passes on
+   the same inputs. Checks after every step: the sharded params bitwise equal to the sync path's on both
+   groups, equal
+   parameter hashes across the groups, the stripe state 1/2 of the sync
+   AdamW state, and the device memory held between steps lower by the
+   state saved; logs the put, stripe-update, allgather and assembly ms
+   beside the sync run's put ms.
 
-Launch counts are reset just before each driven path and read just after
-it. The line before the last is a JSON object with one entry per kernel;
+Each phase's wall is logged. Launch counts are reset just before each
+driven path and read just after it. The line before the last is a JSON
+object with one entry per kernel: ``launches`` counts the ft phase (and
+the split and sp phases for their kernels), ``launches_overlap`` and
+``launches_shard`` the overlap and shard paths' own launches;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. float32 matmuls are pinned to full precision
 (TF32 off) so the plain versions are exact references.
@@ -598,9 +625,10 @@ FT_ARGS: list = []
 
 
 def _spawn(group: int, seed: int, lighthouse: str, workdir: str,
-           steps: int, hold: int = 0) -> subprocess.Popen:
+           steps: int, hold: int = 0, extra: dict = None) -> subprocess.Popen:
     env = dict(os.environ)
     env.update(FT_ENV)
+    env.update(extra or {})
     if hold:
         env["HOLD_AFTER_STEP"] = str(hold)
     env.update(
@@ -630,26 +658,27 @@ def _wait(proc: subprocess.Popen, timeout: float, what: str) -> None:
     check(rc == 0, f"{what} exited with {rc}")
 
 
-def phase_ft(procs: list) -> dict:
-    """The main path (see the module docstring). Returns per-group
-    reports and the kernels' launch counts summed over the groups."""
+def _kill_and_heal(procs: list, tag: str, extra: dict) -> tuple:
+    """Two ``train_lm`` groups under a lighthouse with its defaults (two
+    members per quorum): group 1 holds after its third step and is
+    SIGKILLed, a new group 1 with another init seed heals from group 0,
+    and both run to step 5. Returns both groups' final reports."""
     from torchft_tpu_torch._native import Lighthouse
 
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
     # Two members per quorum: the survivor waits for the restarted group
-    # instead of running ahead alone. No fast path: its answers count a
-    # peer that has not asked yet at its previous step (ROADMAP.md, C).
+    # instead of running ahead alone.
     lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=2,
-                    join_timeout_ms=2000, quorum_tick_ms=50,
-                    fast_path=False)
+                    join_timeout_ms=2000, quorum_tick_ms=50)
     addr = lh.address()
     total = 5
     try:
         t0 = time.perf_counter()
-        g0 = _spawn(0, 0, addr, workdir, total)
+        g0 = _spawn(0, 0, addr, workdir, total, extra=extra)
         # Group 1 holds after its third step: group 0 then waits in the
-        # next quorum round (two members per quorum) until the kill.
-        g1 = _spawn(1, 1, addr, workdir, total, hold=3)
+        # next quorum round (two members per quorum) until the kill. Under
+        # overlap the held step's exchange is still in flight.
+        g1 = _spawn(1, 1, addr, workdir, total, hold=3, extra=extra)
         procs += [g0, g1]
         progress = os.path.join(workdir, "report_1_1.json")
         deadline = time.time() + 600
@@ -664,43 +693,81 @@ def phase_ft(procs: list) -> dict:
                     break
             check(g1.poll() is None and g0.poll() is None,
                   "a replica group exited before the kill")
-            time.sleep(0.2)
+            time.sleep(0.05)
         else:
             raise SmokeError("group 1 never reached step 3")
         os.killpg(g1.pid, signal.SIGKILL)
         g1.wait()
-        log(f"ft: SIGKILLed group 1 after step 3 "
+        log(f"{tag}: SIGKILLed group 1 after step 3 "
             f"({time.perf_counter() - t0:.1f} s)")
-        g1b = _spawn(1, 7, addr, workdir, total)
+        g1b = _spawn(1, 7, addr, workdir, total, extra=extra)
         procs.append(g1b)
         _wait(g0, 900, "group 0")
         _wait(g1b, 900, "restarted group 1")
+        st = lh.status()
+        log(f"{tag}: lighthouse fast_path_hits={st['fast_path_hits']} "
+            f"slow_path_rounds={st['slow_path_rounds']}")
     finally:
         lh.shutdown()
         for name in os.listdir(workdir):
             if name.endswith(".log"):
-                shutil.copy(os.path.join(workdir, name), OUT_DIR)
+                shutil.copy(os.path.join(workdir, name),
+                            os.path.join(OUT_DIR, f"{tag}_{name}"))
     r0 = _read_report(workdir, 0, 0)
     r1 = _read_report(workdir, 1, 7)
     shutil.rmtree(workdir, ignore_errors=True)
     for r in (r0, r1):
-        log(f"ft: group {r['group']} steps={r['step']} "
+        log(f"{tag}: group {r['group']} steps={r['step']} "
             f"losses={[round(x, 4) for x in r['losses']]} "
             f"committed={r['committed']} step_s={r['step_s']} "
             f"allreduce_ms={r['allreduce_ms']} heal_ms={r['heal_ms']} "
+            f"aborted_steps={r['aborted_steps']} "
             f"launches={r['launches']} hash={r['state_hash'][:16]}")
     check(r0["state_hash"] == r1["state_hash"],
-          "groups ended with different parameter/optimizer state")
-    check(r1["heal_count"] >= 1, "restarted group 1 never healed")
-    check(all(r1["committed"]), "a post-heal step of group 1 aborted")
-    check(all(r0["committed"][-2:]), "a post-heal step of group 0 aborted")
+          f"{tag}: groups ended with different parameter/optimizer state")
+    check(r1["heal_count"] >= 1, f"{tag}: restarted group 1 never healed")
+    check(all(r0["committed"][-2:]),
+          f"{tag}: a post-heal step of group 0 aborted")
     for r in (r0, r1):
         check(all(x == x and abs(x) != float("inf") for x in r["losses"]),
-              f"group {r['group']}: non-finite loss")
+              f"{tag}: group {r['group']}: non-finite loss")
         check(r["launches"]["fwd"] > 0 and r["launches"]["bwd_fused"] > 0,
-              f"group {r['group']}: flash kernels not launched")
+              f"{tag}: group {r['group']}: flash kernels not launched")
         check(r["params_on_cpu"] == 0,
-              f"group {r['group']}: parameters left on the CPU")
+              f"{tag}: group {r['group']}: parameters left on the CPU")
+    return r0, r1
+
+
+def phase_ft(procs: list) -> dict:
+    """The main path (see the module docstring). Returns per-group
+    reports and the kernels' launch counts summed over the groups."""
+    r0, r1 = _kill_and_heal(procs, "ft", {})
+    check(all(r1["committed"]), "a post-heal step of group 1 aborted")
+    launches = {n: r0["launches"][n] + r1["launches"][n] for n in KERNELS}
+    return {"launches": launches, "reports": [r0, r1]}
+
+
+def phase_overlap(procs: list) -> dict:
+    """The ft phase's drill under ``OVERLAP_STEPS=1`` (see the module
+    docstring)."""
+    r0, r1 = _kill_and_heal(procs, "overlap", {"OVERLAP_STEPS": "1"})
+    for r in (r0, r1):
+        hidden = np.diff([0.0] + r["hidden_ms"]).round(1).tolist()
+        drain = np.diff([0.0] + r["drain_wait_ms"]).round(1).tolist()
+        log(f"overlap: group {r['group']} per step hidden_ms={hidden} "
+            f"drain_wait_ms={drain} overlap_grads_dropped="
+            f"{r['overlap_grads_dropped']} committed_steps="
+            f"{r['committed_steps']}")
+        check(r["overlap_steps"] == 1
+              and len(r["hidden_ms"]) == len(r["step_s"])
+              and len(r["drain_wait_ms"]) == len(r["step_s"]),
+              f"overlap: group {r['group']} did not run the overlap loop")
+    check(all(r1["committed"]) and r1["aborted_steps"] == 0,
+          "overlap: a step of the restarted group 1 aborted")
+    check(r0["overlap_grads_dropped"] >= 1
+          and r0["overlap_grads_dropped"] == r0["aborted_steps"],
+          "overlap: group 0 dropped %d deferred steps but lost %d to the "
+          "kill" % (r0["overlap_grads_dropped"], r0["aborted_steps"]))
     launches = {n: r0["launches"][n] + r1["launches"][n] for n in KERNELS}
     return {"launches": launches, "reports": [r0, r1]}
 
@@ -1178,8 +1245,7 @@ def phase_wire(procs: list) -> dict:
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_wire_")
     lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=2,
-                    join_timeout_ms=2000, quorum_tick_ms=50,
-                    fast_path=False)
+                    join_timeout_ms=2000, quorum_tick_ms=50)
     t0 = time.perf_counter()
     workers = []
     try:
@@ -1291,12 +1357,270 @@ def phase_wire(procs: list) -> dict:
     return {"reports": reps}
 
 
+# ------------------------------------------------------------ phase 8
+
+
+# The shard cell: the wire cell's model (Llama-2-7B widths, 2 layers) and
+# batch (1 x 2048), AdamW at train_lm's hyperparameters with foreach pinned
+# on both paths, SHARD_STEPS steps per path.
+SHARD_STEPS = 3
+# Stripe state against the full AdamW state: 1/2 at world 2, within the
+# chunk rounding of one element per chunk and the step counters.
+SHARD_STATE_RATIO = (0.49, 0.51)
+# The device memory held between steps must fall by the full state less
+# the stripe state, within this fraction of it.
+SHARD_MEM_REL = 0.05
+
+
+def _shard_tokens(vocab: int, group: int, step: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(5000 + 100 * group + step)
+    return torch.randint(0, vocab, (1, WIRE_SEQ), generator=gen).cuda()
+
+
+def _param_diff(got: dict, want: dict) -> tuple:
+    """``(elements that differ, largest difference in float32 ulps)``."""
+    bad, ulp = 0, 0
+    for n, t in got.items():
+        d = t != want[n]
+        bad += int(d.sum())
+        if d.any():
+            a = t.detach().view(torch.int32).to(torch.int64)
+            b = want[n].view(torch.int32).to(torch.int64)
+            ulp = max(ulp, int((a - b).abs().max()))
+    return bad, ulp
+
+
+def shard_worker(group: int, lighthouse: str, report: str) -> int:
+    """One replica group of the shard phase (run as ``chip_smoke.py
+    --shard-worker``): SHARD_STEPS steps of ``FTTrainer`` with the sync
+    update, then the same steps from the same init params with a fresh
+    ``Manager(shard_update=True)``. The sharded run exchanges the
+    gradients the sync run recorded at each step, after its own forward
+    and backward, whose elements that differ from them are logged per
+    parameter: the check holds the sharded update to the sync update on
+    the same gradients, as JAX's
+    ``test_shard.py::test_bitwise_vs_sync_path`` feeds both fixed
+    gradients. The two runs' own gradients can differ: the fused backward
+    sums dq across k tiles with f32 atomics, and the per-parameter counts
+    show it (a difference starts at one layer's q projection and norm
+    scale, with its k and v projections equal, and spreads to the layers
+    below)."""
+    if not torch.cuda.is_available():
+        raise SmokeError("the shard worker needs a CUDA device")
+    from torchft_tpu_torch.backends.host import HostCommunicator
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models.transformer import (
+        Transformer, chunked_causal_lm_loss, llama2_7b_config)
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.step import FTTrainer
+
+    cfg = llama2_7b_config(num_layers=WIRE_LAYERS,
+                           attention_fn=fa.flash_attention, remat=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    tokens = [_shard_tokens(cfg.vocab_size, group, s)
+              for s in range(SHARD_STEPS)]
+    param_bytes = sum(t.numel() * t.element_size() for t in init.values())
+
+    def loss_fn(m, batch):
+        return chunked_causal_lm_loss(m(batch, return_hidden=True),
+                                      m.lm_head_kernel(), batch)
+
+    def trainer_for(shard: bool) -> FTTrainer:
+        tag = "shard" if shard else "sync"
+        t = FTTrainer(
+            model=model, loss_fn=loss_fn,
+            optimizer=torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                        weight_decay=1e-4, eps=1e-8,
+                                        foreach=True),
+            manager_factory=lambda load, save: Manager(
+                comm=HostCommunicator(), load_state_dict=load,
+                state_dict=save, min_replica_size=2,
+                replica_id=f"shard_{group}_{tag}",
+                lighthouse_addr=lighthouse, rank=0, world_size=1,
+                shard_update=shard))
+        # Both groups start past step 1, where a non-primary would heal.
+        t.manager.load_state_dict({"step": 1, "batches_committed": 0})
+        return t
+
+    out = {"group": group, "sync": [], "shard": []}
+    snaps: list = []
+    recorded: list = []
+    for shard in (False, True):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        trainer = trainer_for(shard)
+        own_fwd_bwd = trainer._fwd_bwd
+        grad_diff: list = [{}]
+
+        def fwd_bwd(batch, own=own_fwd_bwd, shard=shard):
+            loss, grads = own(batch)
+            if not shard:
+                recorded.append({n: g.clone() for n, g in grads.items()})
+                return loss, grads
+            want = recorded[len(out["shard"])]
+            diff = {n: int((g != want[n]).sum()) for n, g in grads.items()}
+            grad_diff[0] = {n: c for n, c in diff.items() if c}
+            return loss, want
+
+        trainer._fwd_bwd = fwd_bwd
+        fa.reset_launches()
+        try:
+            for s in range(SHARD_STEPS):
+                before = trainer.manager.metrics()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, committed = trainer.train_step(tokens[s])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                mx = trainer.manager.metrics()
+                held = param_bytes * (len(snaps) + len(recorded))
+                row = {"step": s + 1, "wall_s": wall,
+                       "loss": float(loss), "committed": committed,
+                       "errored": repr(trainer.manager.errored()),
+                       "steady_bytes": torch.cuda.memory_allocated() - held,
+                       "timings": dict(trainer.last_step_timings)}
+                for k in ("allreduce_ms_total", "allreduce_put_ms_total",
+                          "allreduce_ring_ms_total", "update_ms_total",
+                          "allreduce_fetch_ms_total"):
+                    row[k] = mx[k] - before[k]
+                params = {n: p.detach() for n, p in
+                          trainer.params.items()}
+                if shard:
+                    row["grad_diff"] = grad_diff[0]
+                    row["diff"] = _param_diff(params, snaps[s])
+                    row["hash"] = _tree_hash(params)
+                    row["shard_state_bytes"] = mx["shard_state_bytes"]
+                    row["shard_state_resets"] = mx["shard_state_resets"]
+                    row["update"] = dict(trainer._opt.last_update_timings)
+                    row["foreach"] = trainer.optimizer.defaults["foreach"]
+                else:
+                    snaps.append({n: t.clone() for n, t in params.items()})
+                    row["state_bytes"] = float(sum(
+                        v.numel() * v.element_size()
+                        for st in trainer.optimizer.state.values()
+                        for v in st.values()))
+                out["shard" if shard else "sync"].append(row)
+                log(f"shard[{group}] {'shard' if shard else 'sync'} step "
+                    f"{s + 1}: " + " ".join(
+                        f"{k}={v:.4g}" if isinstance(v, float) else
+                        f"{k}={v}" for k, v in row.items()
+                        if k not in ("hash", "timings")))
+            out[f"launches_{'shard' if shard else 'sync'}"] = dict(
+                fa.LAUNCHES)
+            out[f"opt_state_{'shard' if shard else 'sync'}"] = len(
+                trainer.optimizer.state)
+        finally:
+            trainer.shutdown()
+        # The sync path's AdamW state goes before the sharded run.
+        trainer.optimizer.state.clear()
+        del trainer
+        torch.cuda.empty_cache()
+    out["param_bytes"] = param_bytes
+    with open(report, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_shard(procs: list) -> dict:
+    """The sharded update (see the module docstring)."""
+    from torchft_tpu_torch._native import Lighthouse
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=2,
+                    join_timeout_ms=2000, quorum_tick_ms=50)
+    t0 = time.perf_counter()
+    workers = []
+    try:
+        for group in range(2):
+            log_path = os.path.join(workdir, f"shard_group_{group}.log")
+            workers.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--shard-worker",
+                 str(group), "--shard-lighthouse", lh.address(),
+                 "--shard-report",
+                 os.path.join(workdir, f"shard_{group}.json")],
+                cwd=ROOT, stdout=open(log_path, "w"),
+                stderr=subprocess.STDOUT, start_new_session=True))
+        procs += workers
+        for group, proc in enumerate(workers):
+            _wait(proc, 900, f"shard group {group}")
+        reps = []
+        for group in range(2):
+            with open(os.path.join(workdir, f"shard_{group}.json")) as f:
+                reps.append(json.load(f))
+    finally:
+        lh.shutdown()
+        for name in os.listdir(workdir):
+            if name.endswith(".log"):
+                shutil.copy(os.path.join(workdir, name), OUT_DIR)
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"shard: both groups done in {time.perf_counter() - t0:.1f} s")
+    for r in reps:
+        for b in r["shard"]:
+            log(f"shard: group {r['group']} step {b['step']}: the sharded "
+                f"run's own gradients against the sync run's, differing "
+                f"elements {sum(b['grad_diff'].values())}, per parameter "
+                f"{b['grad_diff'] or 'none'}")
+    for r in reps:
+        for a, b in zip(r["sync"], r["shard"]):
+            log(f"shard: group {r['group']} step {a['step']} "
+                f"sync put_ms={a['allreduce_put_ms_total']:.1f} "
+                f"allreduce_ms={a['allreduce_ms_total']:.1f} "
+                f"wall_s={a['wall_s']:.3f} | shard put_ms="
+                f"{b['allreduce_put_ms_total']:.1f} reduce_scatter_ms="
+                f"{b['allreduce_ms_total']:.1f} update_ms="
+                f"{b['update_ms_total']:.1f} (stripe update "
+                f"{b['update']['update'] * 1e3:.1f} allgather "
+                f"{b['update']['allgather'] * 1e3:.1f} assemble "
+                f"{b['update']['assemble'] * 1e3:.1f}) wall_s="
+                f"{b['wall_s']:.3f} | steady GB sync "
+                f"{a['steady_bytes'] / 1e9:.3f} shard "
+                f"{b['steady_bytes'] / 1e9:.3f} | differing elements "
+                f"{b['diff'][0]} worst ulp {b['diff'][1]}")
+    for r in reps:
+        where = f"shard group {r['group']}"
+        check(r["opt_state_shard"] == 0,
+              f"{where}: the sharded run materialized full AdamW state")
+        for name in ("launches_sync", "launches_shard"):
+            check(r[name]["fwd"] > 0 and r[name]["bwd_fused"] > 0,
+                  f"{where}: flash kernels not launched ({name})")
+        for a, b in zip(r["sync"], r["shard"]):
+            step = f"{where} step {b['step']}"
+            for row in (a, b):
+                check(row["committed"] and row["errored"] == "None",
+                      f"{step}: not committed ({row['errored']})")
+            check(b["diff"][0] == 0,
+                  f"{step}: sharded params differ from the sync path's in "
+                  f"{b['diff'][0]} elements, worst {b['diff'][1]} ulp "
+                  f"(AdamW foreach={b['foreach']})")
+            ratio = b["shard_state_bytes"] / a["state_bytes"]
+            lo, hi = SHARD_STATE_RATIO
+            check(lo <= ratio <= hi, f"{step}: stripe state {ratio:.4f} of "
+                  f"the full AdamW state, outside [{lo}, {hi}]")
+            want = a["state_bytes"] - b["shard_state_bytes"]
+            drop = a["steady_bytes"] - b["steady_bytes"]
+            check(abs(drop - want) <= SHARD_MEM_REL * want,
+                  f"{step}: device memory between steps fell by "
+                  f"{drop / 1e9:.3f} GB, expected {want / 1e9:.3f} GB")
+    for s in range(SHARD_STEPS):
+        check(reps[0]["shard"][s]["hash"] == reps[1]["shard"][s]["hash"],
+              f"shard step {s + 1}: the groups' params differ")
+    launches = {n: 0 for n in KERNELS}
+    for r in reps:
+        for n in ("fwd", "bwd_fused"):
+            launches[n] += r["launches_shard"][n]
+    return {"launches": launches, "reports": reps}
+
+
 # ------------------------------------------------------------------ main
 
 
 def main(argv: list) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="card,kernels,ft,split,sp,wire")
+    ap.add_argument("--phases",
+                    default="card,kernels,ft,split,sp,wire,overlap,shard")
     # A rank of the sp phase's group, or a group of the wire phase
     # (started by the phase itself).
     ap.add_argument("--sp-worker", type=int, default=None)
@@ -1305,6 +1629,9 @@ def main(argv: list) -> int:
     ap.add_argument("--wire-worker", type=int, default=None)
     ap.add_argument("--wire-lighthouse")
     ap.add_argument("--wire-report")
+    ap.add_argument("--shard-worker", type=int, default=None)
+    ap.add_argument("--shard-lighthouse")
+    ap.add_argument("--shard-report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     # Full-precision float32 matmuls: the plain versions are references.
@@ -1315,6 +1642,9 @@ def main(argv: list) -> int:
     if args.wire_worker is not None:
         return wire_worker(args.wire_worker, args.wire_lighthouse,
                            args.wire_report)
+    if args.shard_worker is not None:
+        return shard_worker(args.shard_worker, args.shard_lighthouse,
+                            args.shard_report)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1322,21 +1652,34 @@ def main(argv: list) -> int:
     t0 = time.perf_counter()
     procs: list = []
     try:
-        card = phase_card()
-        rows = phase_kernels() if "kernels" in phases else {}
+        def timed(name: str, fn, *args):
+            t1 = time.perf_counter()
+            res = fn(*args)
+            log(f"{name}: phase wall_s={time.perf_counter() - t1:.1f}")
+            return res
+
+        card = timed("card", phase_card)
+        rows = timed("kernels", phase_kernels) if "kernels" in phases else {}
         launches = {n: 0 for n in KERNELS}
         if "ft" in phases:
             launches.update(
-                {n: c for n, c in phase_ft(procs)["launches"].items()
-                 if n in ("fwd", "bwd_fused")})
+                {n: c for n, c in timed("ft", phase_ft, procs)["launches"]
+                 .items() if n in ("fwd", "bwd_fused")})
         if "split" in phases:
-            split = phase_split()
+            split = timed("split", phase_split)
             launches["bwd_dq"] = split["bwd_dq"]
             launches["bwd_dkdv"] = split["bwd_dkdv"]
         if "sp" in phases:
-            launches.update(phase_sp(procs)["launches"])
+            launches.update(timed("sp", phase_sp, procs)["launches"])
         if "wire" in phases:
-            phase_wire(procs)
+            timed("wire", phase_wire, procs)
+        # The overlap and shard paths run the forward and the fused
+        # backward too: each path's own counts go under its own key.
+        added = {}
+        for name, phase in (("overlap", phase_overlap),
+                            ("shard", phase_shard)):
+            if name in phases:
+                added[name] = timed(name, phase, procs)["launches"]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1352,7 +1695,9 @@ def main(argv: list) -> int:
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"),
-            "library_ms": row.get("library_ms")})
+            "library_ms": row.get("library_ms"),
+            **{f"launches_{path}": counts.get(n, 0)
+               for path, counts in added.items()}})
     log(f"wall_s={time.perf_counter() - t0:.1f}")
     log(card)
     print(json.dumps({"kernels": entries}))

@@ -71,15 +71,13 @@ def _threads(*jobs) -> None:
         assert not t.is_alive(), "a replica group hung"
 
 
-def test_two_groups_leave_rejoin_heal_bitwise():
+@pytest.mark.parametrize("fast_path", [True, False])
+def test_two_groups_leave_rejoin_heal_bitwise(fast_path):
+    """Bitwise replicas through leave, rejoin and heal, with the
+    lighthouse's quorum fast path on (its default) and off."""
     torch.set_num_threads(2)
-    # fast_path=False: a fast-path answer is computed from the cached
-    # quorum, where a peer that has not yet asked this step still carries
-    # its previous step — the first group to ask then counts itself as the
-    # only participant and divides the ring sum by 1 while its peer divides
-    # by 2 (ROADMAP.md, C). Every round takes the full rendezvous instead.
     lh = Lighthouse(bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=200,
-                    quorum_tick_ms=20, fast_path=False)
+                    quorum_tick_ms=20, fast_path=fast_path)
     g0 = g1 = g1b = None
     try:
         g0 = _group(0, seed=0, lighthouse=lh.address())

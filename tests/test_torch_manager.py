@@ -6,12 +6,15 @@ host, bf16 leaves), with participants, a healer contributing zeros, int
 leaves, bucket boundaries and a capped stage-ahead window; the vote and
 error latch, ring poisoning and the recovery rendezvous, the staged heal
 applied at commit, a healer adopting the donor's wire rung, and the
-constructor arguments not ported yet."""
+constructor arguments still refused."""
 
 from __future__ import annotations
 
+import gc
 import socket
 import threading
+import time
+import weakref
 from concurrent.futures import Future
 from unittest.mock import MagicMock
 
@@ -262,6 +265,48 @@ def test_stage_ahead_window_reads_env(monkeypatch):
         assert tmanager._stage_ahead_window() == want
 
 
+def test_allreduce_releases_the_step_trees():
+    """Once a step has committed, neither the gradients handed to the
+    allreduce nor the averaged tree it returned stay alive: the ring's
+    worker drops its last op, whose callbacks reach both trees, before it
+    waits for the next (else two gradient trees sit on the device between
+    steps)."""
+    comms = _ring_comms(thost, 2)
+    errors = []
+
+    def run(r):
+        m = _make(tmanager, comms[r], _client(_q(max_rank=r,
+                                                 replica_rank=r)))
+        try:
+            m.step()
+            tree = {k: torch.tensor(v * (r + 1)) for k, v in TREE.items()
+                    if v.dtype == np.float32 and v.size}
+            out = m.allreduce(tree).result(timeout=30)
+            assert m.should_commit()
+            refs = [weakref.ref(t) for t in (*tree.values(),
+                                             *out.values())]
+            del tree, out
+            deadline = time.monotonic() + 5
+            while (any(w() is not None for w in refs)
+                   and time.monotonic() < deadline):
+                gc.collect()
+                time.sleep(0.01)
+            assert all(w() is None for w in refs), "a step tree is alive"
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+        finally:
+            m.shutdown()
+
+    ts = [threading.Thread(target=run, args=(r,), daemon=True)
+          for r in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert not errors, errors
+
+
 def test_single_group_step_skips_the_ring():
     comm = MagicMock()
     comm.size.return_value = 1
@@ -344,13 +389,17 @@ def test_heal_restores_at_commit_then_steps():
 
 
 def test_unported_arguments_are_refused():
+    """What the port still refuses: the policy controller, DiLoCo
+    policies, and an overlap depth beyond the one-step deferred commit
+    (the JAX Manager refuses that too)."""
     comm = MagicMock()
     with pytest.raises(TypeError):
-        _make(tmanager, comm, _client(_q()), shard_update=True)
-    with pytest.raises(TypeError):
         _make(tmanager, comm, _client(_q()), policy_controller=object())
-    with pytest.raises(ValueError, match="overlap"):
-        _make(tmanager, comm, _client(_q()), overlap_steps=1)
+    with pytest.raises(ValueError, match="DiLoCo"):
+        _make(tmanager, comm, _client(_q()),
+              policy=tpolicy.POLICIES["diloco-16"])
+    with pytest.raises(ValueError, match="overlap_steps"):
+        _make(tmanager, comm, _client(_q()), overlap_steps=2)
 
 
 def test_healer_adopts_donor_int8_rung_and_sends_int8_zeros():

@@ -1,5 +1,5 @@
-"""The port's control-plane core: a verbatim copy of the JAX package's C++
-sources, built into the port's own build directory with message classes
+"""The port's control-plane core: a copy of the JAX package's C++ sources
+(one file carries a recorded patch), built into the port's own build directory with message classes
 generated from its proto (no protobuf runtime), and reachable through the
 port's ctypes bridge."""
 
@@ -11,6 +11,7 @@ import random
 import shutil
 import subprocess
 import threading
+import time
 
 import pytest
 
@@ -27,10 +28,98 @@ SOURCES = ["capi.cc", "lighthouse.cc", "lighthouse.h", "manager.cc",
            os.path.join("proto", "torchft.proto")]
 
 
+# Core files the port patches, each with its unified diff against the JAX
+# package's file.
+PATCHED = {"lighthouse.cc": os.path.join("patches", "fast_path_quorum.patch")}
+
+
+def _apply_unified_diff(text: str, diff: str) -> str:
+    """``text`` with the hunks of a one-file unified diff applied; every
+    context and removed line must match where its hunk says."""
+    src = text.splitlines(keepends=True)
+    out: list = []
+    pos = 0
+    lines = diff.splitlines(keepends=True)
+    assert lines[0].startswith("--- ") and lines[1].startswith("+++ ")
+    i = 2
+    while i < len(lines):
+        head = lines[i]
+        assert head.startswith("@@ -"), head
+        start = int(head[4:].split(",")[0].split(" ")[0]) - 1
+        assert start >= pos, head
+        out += src[pos:start]
+        pos = start
+        i += 1
+        while i < len(lines) and not lines[i].startswith("@@ "):
+            tag, body = lines[i][0], lines[i][1:]
+            if tag in " -":
+                assert src[pos] == body, (pos + 1, body)
+                pos += 1
+            if tag in " +":
+                out.append(body)
+            i += 1
+    return "".join(out + src[pos:])
+
+
 @pytest.mark.parametrize("name", SOURCES)
 def test_core_sources_are_byte_identical(name):
-    assert filecmp.cmp(os.path.join(JAX_CORE, name),
-                       os.path.join(PORT_CORE, name), shallow=False)
+    """Every core file is the JAX package's, byte for byte; a patched one
+    is the JAX package's file plus its recorded diff, byte for byte."""
+    jax_path = os.path.join(JAX_CORE, name)
+    port_path = os.path.join(PORT_CORE, name)
+    if name not in PATCHED:
+        assert filecmp.cmp(jax_path, port_path, shallow=False)
+        return
+    with open(jax_path, encoding="utf-8") as f:
+        reference = f.read()
+    with open(os.path.join(PORT_CORE, PATCHED[name]),
+              encoding="utf-8") as f:
+        diff = f.read()
+    with open(port_path, encoding="utf-8") as f:
+        assert _apply_unified_diff(reference, diff) == f.read()
+    assert not filecmp.cmp(jax_path, port_path, shallow=False)
+
+
+def test_fast_path_counts_every_member_at_its_step():
+    """Two groups ask the lighthouse through their managers, one always
+    50 ms after the other. Every answer counts both groups at max_step
+    (``max_world_size == 2``), whoever asks first, and the steady rounds
+    ride the fast path. Without the fan-in, the fast path answered the
+    first asker from a cache in which its peer still carried the previous
+    step, and that group divided the ring sum by 1."""
+    lh = _native.Lighthouse(bind="127.0.0.1:0", min_replicas=2,
+                            join_timeout_ms=2000, quorum_tick_ms=10,
+                            heartbeat_fresh_ms=300)
+    servers = [_native.ManagerServer(f"g{i}", lh.address(),
+                                     store_addr=f"st{i}", bind="127.0.0.1:0")
+               for i in range(2)]
+    results: dict = {}
+    try:
+        def run(i):
+            client = _native.ManagerClient(servers[i].address())
+            for step in range(1, 7):
+                if i == 1 and step > 1:
+                    time.sleep(0.05)
+                results[(i, step)] = client.quorum(
+                    rank=0, step=step, checkpoint_server_addr=f"c{i}",
+                    timeout_ms=20_000)
+
+        ts = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+            assert not t.is_alive(), "a group hung in the quorum"
+        assert len(results) == 12
+        got = {k: (q.max_step, q.max_world_size)
+               for k, q in results.items()}
+        assert all(v == (k[1], 2) for k, v in got.items()), got
+        assert any(q.fast_path for q in results.values())
+        assert lh.status()["fast_path_hits"] >= 2
+    finally:
+        for s in servers:
+            s.shutdown()
+        lh.shutdown()
 
 
 def test_core_copy_has_no_cmake_build():

@@ -1394,6 +1394,19 @@ std::string Lighthouse::fleet_metrics_text(const FleetAggregate& agg) {
   return os.str();
 }
 
+// Fan-in of a fast-path round at `step`, read from the cached quorum,
+// whose entries carry the step each member last asked at: 1 when every
+// member has asked at `step`, 0 while one has not asked yet, -1 when one
+// has asked past it (the asker lags and must heal through the rendezvous).
+static int fast_fan_in(const Quorum& q, int64_t step) {
+  int state = 1;
+  for (const auto& m : q.participants()) {
+    if (m.step() > step) return -1;
+    if (m.step() < step) state = 0;
+  }
+  return state;
+}
+
 bool Lighthouse::handle_quorum(const LighthouseQuorumRequest& r,
                                LighthouseQuorumResponse* out,
                                std::string* err) {
@@ -1430,33 +1443,60 @@ bool Lighthouse::handle_quorum(const LighthouseQuorumRequest& r,
   // that is exiting: the exact vote abort the graceful-drain protocol
   // exists to prevent). A farewell landing after the re-read is
   // indistinguishable from one landing after the response hit the wire.
-  int64_t dseq = beats_.departed_seq();
-  if (fast_eligible_locked(me.replica_id(), me.step()) &&
-      beats_.departed_seq() == dseq) {
-    // FAST PATH: membership is settled and everyone is provably alive —
-    // serve the cached decision with this member's registration refreshed
-    // and a bumped epoch. No tick-loop park, no fan-in barrier, and the
-    // quorum_id is untouched (membership unchanged by construction).
-    for (auto& m : *prev_quorum_.mutable_participants()) {
-      if (m.replica_id() == me.replica_id()) {
-        m.set_step(me.step());
-        m.set_address(me.address());
-        m.set_store_address(me.store_address());
-        m.set_world_size(me.world_size());
-        break;
-      }
+  //
+  // Fan-in: a cached answer is served only once every member of the cached
+  // quorum has asked at this step. An entry carries the step its member
+  // last asked at, and the managers count as max_world_size only the
+  // members at max_step (manager.cc compute_response): answering the first
+  // asker of a step at once would show it alone at the top, and it would
+  // divide the ring sum by 1 while its peers divide by n. So the asker
+  // registers its step in the cache, then waits (the lock released) until
+  // every other member has registered the same step. The slow path takes
+  // an ask at or below the step its member last asked at (the retry of an
+  // aborted step, which the cache cannot tell from a peer that moved on),
+  // an asker behind a peer, a fan-in that outlasts join_timeout_ms, and a
+  // membership that stops being eligible while the asker waits. Nobody is
+  // served before every member has registered, so a step generation is
+  // never split between fast-served and parked members.
+  bool registered = false;
+  int64_t deadline = 0;
+  for (;;) {
+    const int64_t dseq = beats_.departed_seq();
+    if (!fast_eligible_locked(me.replica_id(), me.step())) break;
+    if (!registered) {
+      QuorumMember* mine = nullptr;
+      for (auto& m : *prev_quorum_.mutable_participants())
+        if (m.replica_id() == me.replica_id()) mine = &m;
+      if (mine == nullptr || me.step() <= mine->step()) break;
+      mine->set_step(me.step());
+      mine->set_address(me.address());
+      mine->set_store_address(me.store_address());
+      mine->set_world_size(me.world_size());
+      fast_round_step_ = std::max(fast_round_step_, me.step());
+      registered = true;
+      deadline = now_ms() + opt_.join_timeout_ms;
+      cv_.notify_all();
     }
-    epoch_++;
-    prev_quorum_.set_epoch(epoch_);
-    fast_path_hits_++;
-    fast_round_step_ = std::max(fast_round_step_, me.step());
-    fill_response_locked(out, /*fast=*/true);
-    // Fleet health hint (docs/design/fleet_health.md): cached-aggregate
-    // read under fleet_mu_ + leaf digest locks only — the fast path's
-    // latency budget never pays for aggregation (bounded by the
-    // kFleetCacheMs recompute cap).
-    fill_fleet_hint(me.replica_id(), out->mutable_fleet());
-    return true;
+    const int fan = fast_fan_in(prev_quorum_, me.step());
+    if (fan < 0 || beats_.departed_seq() != dseq) break;
+    if (fan > 0) {
+      // FAST PATH: membership is settled, everyone is provably alive and
+      // has asked at this step — serve the cached decision with a bumped
+      // epoch. No tick-loop park, and the quorum_id is untouched
+      // (membership unchanged by construction).
+      epoch_++;
+      prev_quorum_.set_epoch(epoch_);
+      fast_path_hits_++;
+      fill_response_locked(out, /*fast=*/true);
+      // Fleet health hint (docs/design/fleet_health.md): cached-aggregate
+      // read under fleet_mu_ + leaf digest locks only — the fast path's
+      // latency budget never pays for aggregation (bounded by the
+      // kFleetCacheMs recompute cap).
+      fill_fleet_hint(me.replica_id(), out->mutable_fleet());
+      return true;
+    }
+    if (shutdown_ || now_ms() >= deadline) break;
+    cv_.wait_for(lk, std::chrono::milliseconds(opt_.quorum_tick_ms));
   }
 
   // SLOW PATH: the reference rendezvous — park until the round cuts.

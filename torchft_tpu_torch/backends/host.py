@@ -775,6 +775,11 @@ class HostCommunicator(Communicator):
                 fut.set_exception(
                     e if isinstance(e, CommunicatorError)
                     else CommunicatorError(str(e)))
+            # Unbind this op before blocking on the next: the future's
+            # done-callbacks close over the caller's gradient trees (the
+            # Manager's pipeline), which would otherwise stay alive on the
+            # device until the next op arrives.
+            item = fut = args = None
 
     # ------------------------------------------------------------ collectives
 

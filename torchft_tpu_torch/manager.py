@@ -1,5 +1,5 @@
-"""Per-step fault-tolerance state machine, sync path (sub-slice (a) of the
-JAX package's ``torchft_tpu/manager.py``).
+"""Per-step fault-tolerance state machine (sub-slices (a), (b) and (c) of
+the JAX package's ``torchft_tpu/manager.py``).
 
 Every training step the Manager (1) joins the global quorum, overlapped
 with the forward pass, (2) reconfigures the cross-group communicator when
@@ -21,11 +21,14 @@ synchronous bucketed host path with its wire rungs — exact f32, bf16, and
 int8 with error feedback, quantized on the device or on the host —
 ``should_commit`` (:3882), ``report_error`` with ring poisoning and the
 recovery rendezvous, ``state_dict``/``load_state_dict`` with the policy
-fields a healer adopts, the accessors and ``shutdown``. The cross-step
-overlap engine, the sharded update, state digests, the policy controller,
-rebalancing, degraded mode, the RAM tier, publication, preemption drains
-and striped heals are later sub-slices; their constructor arguments are
-not accepted.
+fields a healer adopts, the accessors and ``shutdown``; the sharded
+update's exchange — ``reduce_scatter`` (:2573) into a
+:class:`ShardedGrads`, ``allgather_shards`` (:2727) and ``record_update``
+(:2758) — and the cross-step overlap engine's deferred commit
+(``stage_deferred`` .. ``note_deferred_dropped``, :2830-2905). State
+digests, the policy controller, rebalancing, degraded mode, the RAM tier,
+publication, preemption drains and striped heals are later sub-slices;
+their constructor arguments are not accepted.
 
 The device side of the allreduce is torch, on the gradients' device (a
 CUDA card, or the CPU in tests): each bucket's gradient leaves are packed
@@ -50,7 +53,8 @@ import threading
 import time
 import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, TypeVar, cast
+from typing import (Any, Callable, Dict, Iterator, List, Optional, TypeVar,
+                    cast)
 
 import numpy as np
 import torch
@@ -63,7 +67,7 @@ from torchft_tpu_torch.checkpointing import CheckpointServer
 from torchft_tpu_torch.communicator import (BF16, INT8_SEG_ELEMS,
                                             Communicator, CommunicatorError,
                                             Int8Wire, dtype_name, host_dtype,
-                                            to_dtype)
+                                            shard_bounds, to_dtype)
 from torchft_tpu_torch.retry import RetryPolicy, RetryStats
 from torchft_tpu_torch.utils import (advertise_host, div_by_count,
                                      tree_flatten, tree_unflatten)
@@ -105,7 +109,21 @@ class Manager:
         allreduce_wire_dtype: ``torch.bfloat16`` (or ``"bfloat16"``)
             puts float32 gradients on the ring as bf16: each
             contribution is rounded once, the sum and 1/n stay float32.
-        overlap_steps: only 0 (synchronous commit) is ported.
+        overlap_steps: 0 (default) commits synchronously; 1 runs the
+            one-step deferred commit: step N's allreduce stays in flight
+            across the step boundary (:meth:`stage_deferred`), draining
+            under step N+1's forward and backward, and its vote and update
+            land at the N+1 boundary
+            (:class:`~torchft_tpu_torch.optim.DelayedOptimizer`);
+            :meth:`step` refuses to advance over an unsettled deferred
+            step. Gradients are then one step stale, and every failure
+            path drops them.
+        shard_update: the ZeRO-style sharded update: the trainer calls
+            :meth:`reduce_scatter` instead of :meth:`allreduce`, each rank
+            updates only its canonical stripe of the parameters, keeping
+            optimizer state for that stripe alone, and the updated stripes
+            are allgathered (:meth:`allgather_shards`). Every group of a
+            job must set it alike.
         device_quantize: on the int8 rung, quantize on the gradients'
             device so the device->host copy moves the int8 payload
             (default on; env ``TORCHFT_DEVICE_QUANT=0`` turns it off).
@@ -116,8 +134,7 @@ class Manager:
             selects the wire rung (``policy.POLICIES["sync-int8"]`` for
             int8 + error feedback); it wins over
             ``allreduce_wire_dtype``, rides :meth:`state_dict`, and a
-            healer adopts the donor's. Policies with overlap or DiLoCo
-            are not ported.
+            healer adopts the donor's. DiLoCo policies are not ported.
         auth_token: shared job secret (env ``TORCHFT_AUTH_TOKEN``) for the
             checkpoint server and Kill RPCs.
         checkpoint_bind_host: interface of the checkpoint server (env
@@ -143,16 +160,21 @@ class Manager:
         allreduce_bucket_bytes: int = 4 << 20,
         allreduce_wire_dtype: Optional[Any] = None,
         overlap_steps: int = 0,
+        shard_update: bool = False,
         device_quantize: Optional[bool] = None,
         policy: Optional[policy_mod.FTPolicy] = None,
         auth_token: Optional[str] = None,
         checkpoint_bind_host: Optional[str] = None,
         _manager_client: Optional[ManagerClient] = None,
     ) -> None:
-        if overlap_steps != 0:
+        if overlap_steps not in (0, 1):
             raise ValueError(
-                "overlap_steps must be 0: the cross-step overlap engine "
-                f"is not ported yet (got {overlap_steps!r})")
+                "overlap_steps must be 0 (sync commit) or 1 (one-step "
+                f"deferred commit), got {overlap_steps!r}")
+        self._overlap_steps = int(overlap_steps)
+        self._shard_update = bool(shard_update)
+        # The one in-flight deferred step: (future, timing box, step).
+        self._deferred: Optional[tuple] = None
         self._comm = comm
         self._tracer = tracing_mod.Tracer()
         self._bucket_bytes = max(int(allreduce_bucket_bytes), 1)
@@ -168,7 +190,8 @@ class Manager:
             raise TypeError(f"policy must be an FTPolicy, got {policy!r}")
         self._policy_aware = policy is not None
         if policy is None:
-            policy = policy_mod.from_knobs(0, self._wire_dtype)
+            policy = policy_mod.from_knobs(self._overlap_steps,
+                                           self._wire_dtype)
         _check_ported(policy)
         self._policy = policy
         if self._policy_aware:
@@ -227,6 +250,12 @@ class Manager:
             "wire_quant_residual_bytes": 0.0, "policy_switches_total": 0,
             "commit_count": 0, "commit_ms_total": 0.0,
             "committed_steps": 0, "aborted_steps": 0,
+            "overlap_steps_deferred": 0, "allreduce_hidden_ms_total": 0.0,
+            "allreduce_drain_wait_ms_total": 0.0,
+            "overlap_grads_dropped": 0,
+            "reduce_scatter_count": 0, "update_count": 0,
+            "update_ms_total": 0.0, "shard_state_bytes": 0.0,
+            "shard_state_resets": 0,
         }
         self._metrics_lock = threading.Lock()
         self._retry_policy = RetryPolicy()
@@ -318,7 +347,14 @@ class Manager:
     def step(self) -> None:
         """Begin a new training step: bump the step counter when the
         previous step committed, re-open the heal window, and start the
-        quorum round off the critical path."""
+        quorum round off the critical path. Refuses to advance while a
+        deferred step is in flight: its vote gates this advance."""
+        if self._deferred is not None:
+            raise RuntimeError(
+                f"{self._replica_id}: step {self._step} has a deferred "
+                "allreduce still in flight; settle it "
+                "(DelayedOptimizer.settle()/flush()) before starting the "
+                "next step")
         with self._metrics_lock:
             streak = self._quorum_failure_streak
         if streak >= _MAX_CONSECUTIVE_FAILURES:
@@ -523,14 +559,10 @@ class Manager:
     def _host_allreduce_pipelined(self, tree: Any, leaves: list,
                                   treedef: Any) -> Future:
         """Three overlapped stages per bucket: (1) on the caller thread,
-        pack buckets on the device and start their copies into pinned
-        host memory — every bucket up front, or a window of them
-        (``TORCHFT_ALLREDUCE_STAGE_AHEAD``) — then per bucket, in order,
-        wait for its copy, quantize on the host where the int8 rung does
-        so, and hand it to the comm worker; (2) the ring; (3) on the put
-        thread, 1/n on the host and the copy back to the device."""
+        :meth:`_wire_buckets` stages the bucket and hands it to the comm
+        worker; (2) the ring; (3) on the put thread, 1/n on the host and
+        the copy back to the device."""
         n = max(self.num_participants(), 1)
-        participating = self.is_participating()
         ar_t0 = time.perf_counter()
         self._set_wire_tag()
         sched = self._get_schedule(treedef, leaves)
@@ -585,36 +617,42 @@ class Manager:
                         settle_exception(e2)
             return cb
 
+        for chunks, bufs in self._wire_buckets(sched, leaves):
+            self._comm.allreduce_wire(
+                bufs, [dtype_name(c.orig) for c in chunks], op="sum"
+            ).add_done_callback(on_bucket(chunks, time.perf_counter()))
+        return self.wrap_future(agg, default=tree)
+
+    def _wire_buckets(self, sched: "_AllreduceSchedule", leaves: list
+                      ) -> Iterator[tuple]:
+        """Stage 1 of both pipelines: ``(chunks, ring buffers)`` per
+        bucket, in order. A participant packs buckets on the device and
+        starts their copies into pinned host memory — every bucket up
+        front, or a window of them (``TORCHFT_ALLREDUCE_STAGE_AHEAD``) —
+        then waits for each bucket's copy and quantizes on the host where
+        the int8 rung does so; healers and spares yield zeros in this
+        step's wire format, from the shared schedule."""
+        participating = self.is_participating()
         n_buckets = len(sched.chunks)
         window = _stage_ahead_window()
         staged: list = [None] * n_buckets
         next_to_stage = 0
         int8 = self._policy.wire == policy_mod.WIRE_INT8
-
-        def stage_through(hi: int) -> None:
-            nonlocal next_to_stage
-            while next_to_stage < min(hi, n_buckets):
+        for b, chunks in enumerate(sched.chunks):
+            if not participating:
+                yield chunks, [_zero_wire_chunk(c, int8) for c in chunks]
+                continue
+            hi = n_buckets if window is None else min(b + 1 + window,
+                                                      n_buckets)
+            while next_to_stage < hi:
                 staged[next_to_stage] = self._stage_bucket(
                     sched, next_to_stage, leaves, int8)
                 next_to_stage += 1
-
-        for b, chunks in enumerate(sched.chunks):
-            if participating:
-                stage_through(n_buckets if window is None
-                              else b + 1 + window)
-                bufs = self._wait_bucket(staged[b], bucket=b)
-                staged[b] = None  # release the packed device copies
-                if int8:
-                    bufs = self._int8_quantize_bucket(sched, b, chunks,
-                                                      bufs)
-            else:
-                # Healers and spares: zeros in this step's wire format,
-                # from the shared schedule.
-                bufs = [_zero_wire_chunk(c, int8) for c in chunks]
-            self._comm.allreduce_wire(
-                bufs, [dtype_name(c.orig) for c in chunks], op="sum"
-            ).add_done_callback(on_bucket(chunks, time.perf_counter()))
-        return self.wrap_future(agg, default=tree)
+            bufs = self._wait_bucket(staged[b], bucket=b)
+            staged[b] = None  # release the packed device copies
+            if int8:
+                bufs = self._int8_quantize_bucket(sched, b, chunks, bufs)
+            yield chunks, bufs
 
     def _set_wire_tag(self) -> None:
         """Per-op preamble facts of the ring (the JAX package's values for
@@ -803,8 +841,159 @@ class Manager:
         with self._metrics_lock:
             self._metrics["wire_quant_residual_bytes"] = float(total)
 
+    # ------------------------------------------------------ sharded update
+
+    def shard_update(self) -> bool:
+        """True when this Manager was built with ``shard_update=True``
+        (the ZeRO-style sharded update). Read by
+        :class:`~torchft_tpu_torch.parallel.step.FTTrainer` to pick the
+        reduce-scatter loop and by
+        :class:`~torchft_tpu_torch.optim.FTOptimizer` to hold stripe
+        state."""
+        return self._shard_update
+
+    def reduce_scatter(self, tree: Any) -> Future:
+        """Reduce-scatter sibling of :meth:`allreduce`: average a gradient
+        tree across the participating groups, but resolve to only this
+        rank's canonical stripe of it, as a :class:`ShardedGrads` (one 1-D
+        stripe per schedule chunk, placed on the chunk's device, plus the
+        geometry the sharded optimizer needs).
+
+        The protocol is :meth:`allreduce`'s: it joins the quorum, healers
+        and spares contribute zeros, 1/n tracks membership, and errors are
+        swallowed into zero stripes of the same geometry and latched for
+        the vote. The concatenation of every rank's stripes is bitwise the
+        :meth:`allreduce` result: the ring leg is
+        ``Communicator.reduce_scatter_wire``, which folds like the
+        allreduce. A step that needs no stripe geometry (single group,
+        empty tree) resolves to the plain tree;
+        :meth:`FTOptimizer.apply
+        <torchft_tpu_torch.optim.FTOptimizer.apply>` dispatches on the
+        result's type."""
+        if self._errored is not None:
+            return _instant(tree)
+        try:
+            assert self._quorum_future is not None, "call step() first"
+            self._quorum_future.result()
+            if self.single_group_step():
+                return _instant(tree)
+            leaves, treedef = tree_flatten(tree)
+            if not leaves:
+                return _instant(tree)
+            return self._host_reduce_scatter_pipelined(leaves, treedef)
+        except Exception as e:  # noqa: BLE001
+            logger.exception("reduce_scatter failed")
+            self.report_error(e)
+            return _instant(tree)
+
+    def _host_reduce_scatter_pipelined(self, leaves: list,
+                                       treedef: Any) -> Future:
+        """The allreduce pipeline with the ring leg swapped for
+        ``Communicator.reduce_scatter_wire``: staging (pack, device->host
+        copy, host quantize) is shared, the comm worker reduce-scatters
+        each bucket, and the put stage carries only this rank's stripe —
+        1/n on the host and the copy to the device, about 1/world of the
+        allreduce's put bytes."""
+        n = max(self.num_participants(), 1)
+        world = max(self._comm.size(), 1)
+        rank = self._comm.rank()
+        ar_t0 = time.perf_counter()
+        self._set_wire_tag()
+        sched = self._get_schedule(treedef, leaves)
+        all_chunks = [c for cs in sched.chunks for c in cs]
+        agg: Future = Future()
+        out_shards: list = [None] * len(all_chunks)
+        lock = threading.Lock()
+        pending = [len(sched.chunks)]
+
+        def settle_exception(e: BaseException) -> None:
+            try:
+                agg.set_exception(e)
+            except BaseException:  # already settled by another thread
+                pass
+
+        def finish_bucket(base: int, chunks: list, stripes: list) -> None:
+            try:
+                put_t0 = time.perf_counter()
+                with self._tracer.span("put", chunks=len(chunks)):
+                    placed = _put_stripes(chunks, stripes, leaves, n)
+                self._record(allreduce_put_ms_total=(
+                    time.perf_counter() - put_t0) * 1e3)
+                with lock:
+                    out_shards[base:base + len(placed)] = placed
+                    pending[0] -= 1
+                    done = pending[0] == 0
+                if done:
+                    self._record(allreduce_count=1, reduce_scatter_count=1,
+                                 allreduce_ms_total=(
+                                     time.perf_counter() - ar_t0) * 1e3)
+                    try:
+                        agg.set_result(ShardedGrads(
+                            all_chunks, out_shards, rank, world, leaves,
+                            treedef))
+                    except BaseException:  # a bucket error settled it
+                        pass
+            except Exception as e:  # noqa: BLE001
+                settle_exception(e)
+
+        def on_bucket(base: int, chunks: list, submit_t: float
+                      ) -> Callable[[Future], None]:
+            def cb(f: Future) -> None:
+                self._record(allreduce_ring_ms_total=(
+                    time.perf_counter() - submit_t) * 1e3)
+                e = f.exception()
+                if e is not None:
+                    settle_exception(e)
+                    return
+                if not agg.done():
+                    try:
+                        self._put_executor.submit(finish_bucket, base,
+                                                  chunks, f.result())
+                    except Exception as e2:  # executor shut down mid-step
+                        settle_exception(e2)
+            return cb
+
+        base = 0
+        for chunks, bufs in self._wire_buckets(sched, leaves):
+            self._comm.reduce_scatter_wire(
+                bufs, [dtype_name(c.orig) for c in chunks], op="sum"
+            ).add_done_callback(on_bucket(base, chunks, time.perf_counter()))
+            base += len(chunks)
+
+        # Error default: zero stripes with the real geometry. The latched
+        # error aborts the vote, so the values are never applied, but
+        # every rank keeps the same step shape. Built only on failure.
+        def zero_default() -> "ShardedGrads":
+            zs = []
+            for c in all_chunks:
+                bd = shard_bounds(c.total, world)
+                zs.append(_zeros_like_chunk(c, int(bd[rank + 1] - bd[rank]),
+                                            leaves))
+            return ShardedGrads(all_chunks, zs, rank, world, leaves,
+                                treedef)
+
+        return self.wrap_future(agg, default_fn=zero_default)
+
+    def allgather_shards(self, shards: list) -> Future:
+        """Error-swallowed allgather of this rank's updated parameter
+        stripes (host arrays), the sharded update's reassembly leg:
+        resolves to every ring rank's stripe list, in rank order. On a
+        failure the error latches (the vote aborts) and the result repeats
+        the local stripes — structure only, never applied."""
+        world = max(self._comm.size(), 1)
+        try:
+            fut = self._comm.allgather(shards)
+        except Exception as e:  # noqa: BLE001
+            self.report_error(e)
+            return _instant([shards] * world)
+        return self.wrap_future(fut, default=[shards] * world)
+
     def prepare_commit(self) -> None:
-        """Drain this step's in-flight work and apply a staged heal."""
+        """Drain this step's in-flight work and apply a staged heal: the
+        pre-vote half of :meth:`should_commit`, exposed so that the
+        sharded update computes its stripe after a heal restore lands and
+        before the vote, which must still cover the allgather that
+        follows. Idempotent."""
         with self._tracer.span("drain", pending=len(self._pending_work)):
             if self._quorum_future is not None:
                 self.wait_quorum()
@@ -813,6 +1002,16 @@ class Manager:
             self._pending_work = []
             if self._healing and self._pending_state_dict is not None:
                 self._apply_pending_state_dict()
+
+    def record_update(self, ms: float, shard_state_bytes: float,
+                      resets: int = 0) -> None:
+        """The sharded optimizer's accounting: wall ms of its stripe
+        update, allgather and reassembly, the live stripe state's bytes (a
+        gauge), and the stripe-state resets a geometry change forced."""
+        self._record(update_count=1, update_ms_total=ms,
+                     shard_state_resets=resets)
+        with self._metrics_lock:
+            self._metrics["shard_state_bytes"] = float(shard_state_bytes)
 
     def wait_quorum(self) -> None:
         """Join this step's quorum round; a failure latches via
@@ -829,9 +1028,12 @@ class Manager:
                 and self.num_participants() <= 1
                 and self.is_participating())
 
-    def wrap_future(self, fut: Future, default: Any = None) -> Future:
-        """Swallow ``fut``'s error into ``default`` and latch it; track the
-        future for the commit drain."""
+    def wrap_future(self, fut: Future, default: Any = None,
+                    default_fn: Optional[Callable[[], Any]] = None
+                    ) -> Future:
+        """Swallow ``fut``'s error into ``default`` (or ``default_fn()``,
+        built only on failure) and latch it; track the future for the
+        commit drain."""
         out: Future = Future()
         self._record(allreduce_inflight=1)
 
@@ -842,11 +1044,82 @@ class Manager:
                 out.set_result(f.result())
             else:
                 self.report_error(e)
-                out.set_result(default)
+                out.set_result(default_fn() if default_fn is not None
+                               else default)
 
         fut.add_done_callback(relay)
         self._pending_work.append(out)
         return out
+
+    # ------------------------------------------------------- deferred commit
+    # The cross-step overlap engine (overlap_steps=1): the trainer stages
+    # step N's error-swallowed allreduce future here instead of draining
+    # it, lets it run under step N+1's forward and backward, and settles it
+    # (drain, vote, apply or drop) at the N+1 boundary through
+    # DelayedOptimizer. One deferred step at most; step() refuses to
+    # advance over it.
+
+    def stage_deferred(self, fut: Future) -> None:
+        """Carry the current step's in-flight allreduce across the step
+        boundary. ``fut`` is a future this Manager returned from
+        :meth:`allreduce` or :meth:`reduce_scatter`: failures latch and
+        surface in the deferred vote, never here."""
+        if self._deferred is not None:
+            raise RuntimeError(
+                f"{self._replica_id}: previous deferred step "
+                f"{self._deferred[2]} not settled; drain it before "
+                "staging another")
+        box: Dict[str, Optional[float]] = {
+            "dispatch": time.perf_counter(), "done": None}
+
+        def stamp(_f: Future) -> None:
+            box["done"] = time.perf_counter()
+
+        fut.add_done_callback(stamp)
+        self._deferred = (fut, box, self._step)
+        self._record(overlap_steps_deferred=1)
+
+    def deferred_pending(self) -> bool:
+        """True while a staged deferred allreduce awaits its settle."""
+        return self._deferred is not None
+
+    def deferred_step(self) -> Optional[int]:
+        """Step number of the staged deferred allreduce (None if none)."""
+        return self._deferred[2] if self._deferred is not None else None
+
+    def drain_deferred(self) -> Any:
+        """Block until the staged deferred allreduce resolves and return
+        its result. Its wall splits into ``allreduce_hidden_ms_total``
+        (ran under the caller's compute since it was staged) and
+        ``allreduce_drain_wait_ms_total`` (still blocked on here). The
+        caller then votes and applies or drops
+        (:class:`~torchft_tpu_torch.optim.DelayedOptimizer`)."""
+        if self._deferred is None:
+            raise RuntimeError(
+                f"{self._replica_id}: no deferred step staged")
+        fut, box, step = self._deferred
+        t_drain = time.perf_counter()
+        try:
+            with self._tracer.span("overlap_drain", deferred_step=step):
+                res = fut.result()
+        finally:
+            self._deferred = None
+        t_done = box["done"]
+        if t_done is None:  # result() raced the done-callback
+            t_done = time.perf_counter()
+        hidden = max(0.0, min(t_done, t_drain) - box["dispatch"])
+        wait = max(0.0, t_done - t_drain)
+        self._record(allreduce_hidden_ms_total=hidden * 1e3,
+                     allreduce_drain_wait_ms_total=wait * 1e3)
+        return res
+
+    def note_deferred_dropped(self) -> None:
+        """Count a settled deferred step whose stale gradients were
+        dropped (vote abort, latched error, shutdown) in
+        ``overlap_grads_dropped``."""
+        self._record(overlap_grads_dropped=1)
+        logger.info("%s step=%d deferred gradients dropped (errored=%r)",
+                    self._replica_id, self._step, self._errored)
 
     # ---------------------------------------------------------------- commit
 
@@ -945,6 +1218,7 @@ class Manager:
         return self._policy
 
     def _install_policy_knobs(self, p: policy_mod.FTPolicy) -> None:
+        self._overlap_steps = int(p.overlap_steps)
         wd = p.wire_dtype()
         self._wire_dtype = host_dtype(wd) if wd is not None else None
 
@@ -969,6 +1243,11 @@ class Manager:
                     old.name, p.name, self._step, reason)
 
     # ------------------------------------------------------------- accessors
+
+    def overlap_steps(self) -> int:
+        """Cross-step overlap depth: 0 commits synchronously, 1 runs the
+        deferred commit. Read by the trainer to pick its loop."""
+        return self._overlap_steps
 
     def num_participants(self) -> int:
         return self._participating_world_size
@@ -999,6 +1278,15 @@ class Manager:
         if self._shutdown_done:
             return
         self._shutdown_done = True
+        if self._deferred is not None:
+            # At most the one in-flight step is lost, as on a vote abort;
+            # FTTrainer.shutdown flushes it first.
+            self.note_deferred_dropped()
+            logger.warning(
+                "%s: shutdown with a deferred step in flight; its "
+                "gradients are dropped (flush before shutdown to apply "
+                "them)", self._replica_id)
+            self._deferred = None
         self._ckpt_server.shutdown()
         self._executor.shutdown(wait=False, cancel_futures=True)
         # A queued put must still run: it resolves the aggregate future.
@@ -1029,9 +1317,8 @@ def _torch_dtype(d: np.dtype) -> torch.dtype:
 
 
 def _check_ported(p: policy_mod.FTPolicy) -> None:
-    if p.overlap_steps or p.diloco:
-        raise ValueError(f"policy {p.name!r}: cross-step overlap and DiLoCo "
-                         "are not ported yet")
+    if p.diloco:
+        raise ValueError(f"policy {p.name!r}: DiLoCo is not ported yet")
 
 
 class _ChunkPlan:
@@ -1223,6 +1510,14 @@ def _zero_wire_chunk(c: _ChunkPlan, int8: bool) -> Any:
     return np.zeros(c.total, c.wire)
 
 
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor sharing its memory (bf16 from the
+    :data:`~torchft_tpu_torch.communicator.BF16` carrier's bits)."""
+    if arr.dtype == BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _put_bucket_chunks(chunks: list, reduced: list, leaves: list,
                        n: int) -> Dict[int, Any]:
     """Put stage of one bucket: 1/n on the host, then one host->device
@@ -1233,15 +1528,164 @@ def _put_bucket_chunks(chunks: list, reduced: list, leaves: list,
         arr = div_by_count(np.asarray(arr), n)
         ref = leaves[c.idx[0]] if c.idx else None
         if isinstance(ref, torch.Tensor):
-            flat = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-                    if arr.dtype == BF16 else torch.from_numpy(arr))
-            flat = flat.to(ref.device)
+            flat = _host_tensor(arr).to(ref.device)
             parts = torch.split(flat, c.sizes)
         else:
             parts = np.split(arr, np.cumsum(c.sizes)[:-1])
         for i, shape, part in zip(c.idx, c.shapes, parts):
             scaled[i] = part.reshape(shape)
     return scaled
+
+
+def _put_stripes(chunks: list, stripes: list, leaves: list,
+                 n: int) -> list:
+    """Put stage of one reduce-scattered bucket: 1/n of each stripe on the
+    host, then its copy to the device of the chunk's tensor leaves (host
+    chunks keep the host array)."""
+    out = []
+    for c, arr in zip(chunks, stripes):
+        arr = div_by_count(np.asarray(arr), n)
+        ref = leaves[c.idx[0]] if c.idx else None
+        out.append(_host_tensor(arr).to(ref.device)
+                   if isinstance(ref, torch.Tensor) else arr)
+    return out
+
+
+def _zeros_like_chunk(c: _ChunkPlan, size: int, leaves: list) -> Any:
+    """Zeros of ``size`` elements in the chunk's dtype, placed like its
+    leaves."""
+    ref = leaves[c.idx[0]] if c.idx else None
+    if isinstance(ref, torch.Tensor):
+        return torch.zeros(size, dtype=_torch_dtype(c.orig),
+                           device=ref.device)
+    return np.zeros(size, c.orig)
+
+
+class ShardedGrads:
+    """This rank's canonical stripe of an averaged gradient tree, and the
+    geometry the sharded optimizer needs (JAX ``manager.py:5564``).
+    ``chunks`` are the schedule's :class:`_ChunkPlan` objects in order;
+    ``shards[k]`` is the 1/n-scaled 1-D stripe
+    ``[bounds[rank], bounds[rank + 1])`` of chunk k
+    (:func:`~torchft_tpu_torch.communicator.shard_bounds` over the ring
+    world), a tensor on the device of the chunk's leaves. ``leaves`` are
+    the gradient leaves, templates of placement only. Produced by
+    :meth:`Manager.reduce_scatter`, consumed by
+    :meth:`FTOptimizer.apply <torchft_tpu_torch.optim.FTOptimizer.apply>`.
+    """
+
+    __slots__ = ("chunks", "shards", "rank", "world", "leaves", "treedef")
+
+    def __init__(self, chunks: list, shards: list, rank: int, world: int,
+                 leaves: list, treedef: Any) -> None:
+        self.chunks = chunks
+        self.shards = shards
+        self.rank = rank
+        self.world = world
+        self.leaves = leaves
+        self.treedef = treedef
+
+    def geometry_key(self) -> tuple:
+        """The stripe geometry: stripe optimizer state is valid only while
+        it is unchanged. A membership change moves every rank's stripe,
+        so every rank resets together; params stay lockstep, only the
+        moments restart."""
+        return (self.world, self.rank,
+                tuple(int(s.numel() if isinstance(s, torch.Tensor)
+                          else np.size(s)) for s in self.shards),
+                tuple(dtype_name(c.orig) for c in self.chunks))
+
+    def _check_leaves(self, pleaves: list) -> None:
+        if len(pleaves) != len(self.leaves):
+            raise ValueError(
+                f"params have {len(pleaves)} leaves, grads had "
+                f"{len(self.leaves)} — the sharded update needs matching "
+                "structures")
+
+    def param_shards(self, params: Any) -> list:
+        """This rank's stripe of ``params``, chunk-aligned with
+        :attr:`shards`: one fresh 1-D tensor per chunk, sliced on the
+        params' device, so only this rank's 1/world of each leaf is
+        read."""
+        pleaves, _ = tree_flatten(params)
+        self._check_leaves(pleaves)
+        out = []
+        with torch.no_grad():
+            for c in self.chunks:
+                bd = shard_bounds(c.total, self.world)
+                lo, hi = int(bd[self.rank]), int(bd[self.rank + 1])
+                pieces = []
+                off = 0
+                for i, size in zip(c.idx, c.sizes):
+                    a, b = max(lo, off), min(hi, off + size)
+                    if a < b:
+                        pieces.append(
+                            pleaves[i].detach().reshape(-1)[a - off:b - off])
+                    off += size
+                ref = pleaves[c.idx[0]]
+                out.append(torch.cat(pieces).to(_torch_dtype(c.orig))
+                           if pieces else
+                           torch.empty(0, dtype=_torch_dtype(c.orig),
+                                       device=ref.device))
+        return out
+
+    def host_stripes(self, stripes: list) -> list:
+        """This rank's updated stripes as host tensors for
+        :meth:`Manager.allgather_shards`, each padded to its chunk's widest
+        stripe. The host ring's allgather restores every peer's payload
+        into the shapes of the local one, and stripes of one chunk differ
+        by up to one element across ranks; the JAX package sends them
+        unpadded, so its allgather fails, and the step aborts, whenever
+        they differ. :meth:`assemble_params` trims the padding."""
+        out = []
+        for c, s in zip(self.chunks, stripes):
+            width = int(np.diff(shard_bounds(c.total, self.world)).max())
+            host = s.detach().cpu()
+            if host.numel() < width:
+                host = torch.cat([host, host.new_zeros(width - host.numel())])
+            out.append(host)
+        return out
+
+    def assemble_params(self, gathered: list, params: Any,
+                        own: Optional[list] = None) -> Any:
+        """Write every rank's updated stripes into ``params`` in place and
+        return ``params``. ``gathered[r][k]`` is rank r's host stripe of
+        chunk k (:meth:`Manager.allgather_shards`), exact or padded by
+        :meth:`host_stripes`; ``own``, when given, holds this rank's
+        stripes on the device, which are then copied on the device instead
+        of back from the host. Every rank writes the same bytes, so params
+        stay bitwise lockstep."""
+        pleaves, _ = tree_flatten(params)
+        self._check_leaves(pleaves)
+        with torch.no_grad():
+            for k, c in enumerate(self.chunks):
+                bd = shard_bounds(c.total, self.world)
+                width = int(np.diff(bd).max())
+                for r in range(self.world):
+                    lo, hi = int(bd[r]), int(bd[r + 1])
+                    if own is not None and r == self.rank:
+                        seg = own[k]
+                    else:
+                        g = gathered[r][k]
+                        seg = (g.reshape(-1) if isinstance(g, torch.Tensor)
+                               else _host_tensor(np.ascontiguousarray(
+                                   np.ravel(np.asarray(g)))))
+                        if seg.numel() == width:
+                            seg = seg[:hi - lo]
+                    if seg.numel() != hi - lo:
+                        raise ValueError(
+                            f"rank {r} published a {seg.numel()}-element "
+                            f"stripe for chunk {k}; the geometry expects "
+                            f"{hi - lo} — is shard_update set alike on "
+                            "every group?")
+                    off = 0
+                    for i, size in zip(c.idx, c.sizes):
+                        a, b = max(lo, off), min(hi, off + size)
+                        if a < b:
+                            pleaves[i].detach().view(-1)[a - off:b - off] \
+                                .copy_(seg[a - lo:b - lo])
+                        off += size
+        return params
 
 
 def _instant(value: Any) -> Future:

@@ -1,6 +1,7 @@
-"""The fault-tolerant training step (the sync path of the JAX package's
-``torchft_tpu/parallel/step.py:FTTrainer.train_step``), and the
-sequence-parallel step (:class:`SPTrainer`).
+"""The fault-tolerant training step (the JAX package's
+``torchft_tpu/parallel/step.py:FTTrainer``: the sync loop, the
+reduce-scatter loop of the sharded update and the cross-step overlap
+loop), and the sequence-parallel step (:class:`SPTrainer`).
 
     trainer = FTTrainer(
         model=model, loss_fn=loss_fn,
@@ -22,6 +23,7 @@ here votes before it updates.
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -31,8 +33,12 @@ from torch import nn
 
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models.transformer import chunked_nll_sum
-from torchft_tpu_torch.optim import FTOptimizer, init_adam_state
+from torchft_tpu_torch.optim import (DelayedOptimizer, FTOptimizer,
+                                     init_adam_state, load_state_in_place,
+                                     state_dict_of)
 from torchft_tpu_torch.parallel.sharding import shard_sequence
+
+logger = logging.getLogger(__name__)
 
 
 class FTTrainer:
@@ -43,9 +49,14 @@ class FTTrainer:
         loss_fn: ``loss_fn(model, batch) -> scalar loss``.
         optimizer: a ``torch.optim`` Adam/AdamW over ``model``'s
             parameters; its state is materialized at construction so a
-            healer and its donor share one structure.
+            healer and its donor share one structure. Under the sharded
+            update its state is never materialized: the
+            :class:`~torchft_tpu_torch.optim.FTOptimizer` keeps this
+            rank's stripe state instead.
         manager_factory: ``factory(load_state_dict, state_dict)`` returning
-            the :class:`Manager`; wires healing to the live state.
+            the :class:`Manager`; wires healing to the live state. Its
+            ``overlap_steps() == 1`` selects the overlap loop, its
+            ``shard_update()`` the reduce-scatter loop.
     """
 
     def __init__(self, model: nn.Module,
@@ -56,13 +67,23 @@ class FTTrainer:
         self.loss_fn = loss_fn
         self.params: Dict[str, nn.Parameter] = dict(model.named_parameters())
         self.optimizer = optimizer
-        init_adam_state(optimizer)
+        # Bumped by every load_state_dict: a restore copies into the live
+        # tensors in place, so the overlap loop detects a heal by this
+        # count, not by the identity of the params.
+        self.heal_generation = 0
         self.manager: Manager = manager_factory(self.load_state_dict,
                                                 self.state_dict)
-        self._opt = FTOptimizer(self.manager, optimizer)
+        self._overlap = self.manager.overlap_steps() == 1
+        self._shard = self.manager.shard_update()
+        if not self._shard:
+            init_adam_state(optimizer)
+        self._opt = (DelayedOptimizer if self._overlap else FTOptimizer)(
+            self.manager, optimizer, self._shard)
         self.last_loss: Optional[torch.Tensor] = None
         # Main-thread wall partition of the most recent train_step.
         self.last_step_timings: dict = {}
+        # Overlap loop: the most recent settled vote.
+        self._last_committed = True
 
     def train_step(self, batch: Any) -> Tuple[torch.Tensor, bool]:
         """One fault-tolerant step; returns ``(loss, committed)``.
@@ -73,55 +94,139 @@ class FTTrainer:
         :attr:`last_step_timings` partitions the step's wall clock into
         ``compute`` (forward + backward, including waiting for the device),
         ``allreduce_wait`` (quorum, heal and the cross-group exchange),
-        ``commit`` (vote + update) and ``other``."""
+        ``commit`` (vote + update) and ``other``. In shard mode the
+        exchange is ``manager.reduce_scatter`` and the update a stripe
+        update; under ``overlap_steps=1`` the step is
+        :meth:`_train_step_overlap`."""
+        if self._overlap:
+            return self._train_step_overlap(batch)
         t0 = time.perf_counter()
         self.manager.step()
         if callable(batch):
             batch = batch()
         t1 = time.perf_counter()
-        loss = self.loss_fn(self.model, batch)
-        loss.backward()
-        grads = {}
-        for name, p in self.params.items():
-            grads[name] = p.grad
-            p.grad = None
+        loss, grads = self._fwd_bwd(batch)
         if loss.is_cuda:
             torch.cuda.synchronize(loss.device)
         t2 = time.perf_counter()
-        avg = self.manager.allreduce(grads).result()
+        avg = self._exchange(grads).result()
         t3 = time.perf_counter()
         committed = self._opt.apply(self.params, avg)
-        self.last_loss = loss.detach()
+        self.last_loss = loss
         t4 = time.perf_counter()
         self.last_step_timings = {
             "compute": t2 - t1, "allreduce_wait": t3 - t2,
             "commit": t4 - t3, "other": t1 - t0, "total": t4 - t0}
         return self.last_loss, committed
 
+    def _fwd_bwd(self, batch: Any) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Forward and backward on the live params; the gradients are
+        taken out of ``p.grad`` into a dict, so that they never meet the
+        averaged gradients the optimizer assigns there."""
+        loss = self.loss_fn(self.model, batch)
+        loss.backward()
+        grads = {}
+        for name, p in self.params.items():
+            grads[name] = p.grad
+            p.grad = None
+        return loss.detach(), grads
+
+    def _exchange(self, grads: Dict[str, Any]) -> Any:
+        return (self.manager.reduce_scatter(grads) if self._shard
+                else self.manager.allreduce(grads))
+
+    def _train_step_overlap(self, batch: Any) -> Tuple[torch.Tensor, bool]:
+        """One step of the cross-step overlap engine (JAX
+        ``step.py:329``):
+
+        1. forward and backward of this step at the current params,
+           enqueued on the device;
+        2. settle the previous step: drain its in-flight exchange (which
+           ran under step 1's compute), cast its vote, and apply its
+           update in place, or drop its gradients, or restore a heal and
+           apply. The in-place update is enqueued on the same stream after
+           this step's backward, so stream order has the backward read the
+           params from before it;
+        3. ``manager.step()``, gated on that vote as in the sync loop;
+        4. start this step's exchange and stage it for the next boundary.
+
+        So gradients are evaluated one update behind. Two cases compute
+        again at the settled params instead of using step 1's gradients: a
+        heal restored the params during the settle (the restore copies in
+        place, so :attr:`heal_generation` tells), and a callable batch,
+        which is drawn after ``step()``.
+
+        Returns ``(loss, committed)``: this step's loss and the most
+        recent settled vote (``True`` before anything settled). The last
+        step stays in flight until the next call, :meth:`flush` or
+        :meth:`shutdown`."""
+        t0 = time.perf_counter()
+        spec = None if callable(batch) else self._fwd_bwd(batch)
+        gen = self.heal_generation
+        t1 = time.perf_counter()
+        drain = vote = 0.0
+        if self._opt.pending():
+            self._last_committed = self._opt.settle()
+            st = self._opt.last_settle_timings
+            drain, vote = st["drain"], st["vote_apply"]
+        healed = self.heal_generation != gen
+        t2 = time.perf_counter()
+        self._opt.begin_step()
+        if callable(batch):
+            batch = batch()
+        if spec is None or healed:
+            spec = self._fwd_bwd(batch)
+        loss, grads = spec
+        t3 = time.perf_counter()
+        self._opt.stage(self.params, self._exchange(grads))
+        self.last_loss = loss
+        t4 = time.perf_counter()
+        self.last_step_timings = {
+            # The sync loop's keys: compute = both forward/backward
+            # dispatches, allreduce_wait = blocked draining the previous
+            # step's exchange, commit = its vote and update.
+            "compute": (t1 - t0) + (t3 - t2), "allreduce_wait": drain,
+            "commit": vote, "other": (t2 - t1 - drain - vote) + (t4 - t3),
+            "total": t4 - t0}
+        return loss, self._last_committed
+
+    def flush(self) -> Optional[bool]:
+        """Settle the deferred in-flight step, if any (overlap loop):
+        drain its exchange, vote, apply or drop. Call before a clean
+        shutdown so the final step is not dropped. Returns the vote, or
+        ``None`` when nothing was pending (always in the sync loop)."""
+        if self._overlap and self._opt.pending():
+            self._last_committed = self._opt.settle()
+            return self._last_committed
+        return None
+
     # ------------------------------------------------- state (for healing)
 
     def state_dict(self) -> Dict[str, Any]:
         """``{"params": {name: tensor}, "opt_state": {name: {"exp_avg",
         "exp_avg_sq", "step"}}}`` — live tensors, flattened in sorted-key
-        order by the serializer."""
-        opt = {name: dict(self.optimizer.state[p])
-               for name, p in self.params.items()}
-        return {"params": dict(self.params), "opt_state": opt}
+        order by the serializer. In shard mode ``opt_state`` is ``None``,
+        an empty subtree, as in the JAX trainer: the stripe state is per
+        rank and stays out of the heal payload."""
+        if self._shard:
+            return {"params": dict(self.params), "opt_state": None}
+        return state_dict_of(self.params, self.optimizer)
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Copy a restored state into the live tensors in place, so the
-        optimizer's parameter references stay valid."""
-        with torch.no_grad():
-            for name, p in self.params.items():
-                p.copy_(state["params"][name])
-                dst = self.optimizer.state[p]
-                for key, val in state["opt_state"][name].items():
-                    if isinstance(dst.get(key), torch.Tensor):
-                        dst[key].copy_(val)
-                    else:
-                        dst[key] = val
+        optimizer's parameter references stay valid; bumps
+        :attr:`heal_generation`."""
+        self.heal_generation += 1
+        load_state_in_place(self.params, self.optimizer, state)
 
     def shutdown(self) -> None:
+        try:
+            # Apply the final in-flight step before tearing down.
+            self.flush()
+        except Exception:  # noqa: BLE001 — teardown must proceed
+            logger.warning("flush of the deferred step failed at "
+                           "shutdown; its gradients are dropped",
+                           exc_info=True)
         self.manager.shutdown()
 
 

@@ -7,7 +7,7 @@ healthy peer's live state over HTTP.
 
     # quorum server + dashboard
     python -m torchft_tpu_torch.lighthouse --bind 0.0.0.0:29510 \\
-        --min-replicas 1 --no-fast-path
+        --min-replicas 1
 
     # one per group k in {0, 1}
     REPLICA_GROUP_ID=$k NUM_REPLICA_GROUPS=2 \\
@@ -25,8 +25,12 @@ step with the losses, votes, step walls, manager timings, kernel launch
 counts and, at the end, a sha256 of the parameters and optimizer state,
 and ``HOLD_AFTER_STEP``: a fault drill — after committing that step the
 process stops stepping and waits to be killed (``"held": true`` in the
-report). ``OVERLAP_STEPS`` must be 0; durable checkpoints and elastic data
-are not ported yet. ``--device`` defaults to ``cuda``.
+report); under overlap the held step's exchange is then still in flight.
+``OVERLAP_STEPS=1`` runs the cross-step overlap engine: step N's
+allreduce drains under step N+1's forward and backward, and its vote and
+update land at the N+1 boundary (one-step-stale gradients); every group
+must set it alike. Durable checkpoints and elastic data are not ported
+yet. ``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -102,8 +106,7 @@ def main(argv: Any = None) -> None:
     seed = int(os.environ.get("INIT_SEED", 0))
     report_file = os.environ.get("REPORT_FILE")
     hold = os.environ.get("HOLD_AFTER_STEP")
-    if int(os.environ.get("OVERLAP_STEPS", 0)) != 0:
-        raise ValueError("OVERLAP_STEPS: the overlap engine is not ported")
+    overlap = int(os.environ.get("OVERLAP_STEPS", 0))
 
     cfg = make_config()
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -144,13 +147,15 @@ def main(argv: Any = None) -> None:
         manager_factory=lambda load, save: Manager(
             comm=HostCommunicator(),
             load_state_dict=load, state_dict=save, min_replica_size=1,
-            replica_id=f"train_lm_{replica_group}"))
+            replica_id=f"train_lm_{replica_group}", overlap_steps=overlap))
     m = trainer.manager
     logger.info("replica group %d/%d up (%s)", replica_group, num_groups,
                 m.replica_id())
 
     report: Dict[str, Any] = {"group": replica_group, "seed": seed,
-                              "losses": [], "committed": [], "step_s": []}
+                              "overlap_steps": overlap, "losses": [],
+                              "committed": [], "step_s": [], "hidden_ms": [],
+                              "drain_wait_ms": []}
 
     def write_report(final: bool) -> None:
         if not report_file:
@@ -161,6 +166,9 @@ def main(argv: Any = None) -> None:
             heal_ms=round(mx["heal_ms_total"], 1),
             allreduce_ms=round(mx["allreduce_ms_total"], 1),
             allreduce_count=int(mx["allreduce_count"]),
+            committed_steps=int(mx["committed_steps"]),
+            aborted_steps=int(mx["aborted_steps"]),
+            overlap_grads_dropped=int(mx["overlap_grads_dropped"]),
             launches=dict(fa.LAUNCHES),
             params_on_cpu=sum(p.device.type == "cpu"
                               for p in trainer.params.values())
@@ -179,6 +187,11 @@ def main(argv: Any = None) -> None:
             report["losses"].append(float(loss))
             report["committed"].append(bool(committed))
             report["step_s"].append(round(time.perf_counter() - t0, 3))
+            mx = m.metrics()
+            report["hidden_ms"].append(
+                round(mx["allreduce_hidden_ms_total"], 1))
+            report["drain_wait_ms"].append(
+                round(mx["allreduce_drain_wait_ms_total"], 1))
             logger.info("step=%d loss=%.4f committed=%s participants=%d "
                         "timings=%s", m.current_step(), float(loss),
                         committed, m.num_participants(),
@@ -191,6 +204,9 @@ def main(argv: Any = None) -> None:
                 logger.info("holding after step %d", m.current_step())
                 while True:
                     time.sleep(1)
+        # Overlap: the last step is still in flight; apply it before the
+        # final state hash.
+        trainer.flush()
         logger.info("done: %d steps, %d batches committed",
                     m.current_step(), m.batches_committed())
         write_report(final=True)
