@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py                     # every phase, one card
     python3 chip_smoke.py --phases kernels,sp # a subset of card,kernels,
-                                              # ft,split,sp,wire,overlap,shard
+                                              # ft,split,sp,wire,overlap,
+                                              # shard,attest
 
 Phases:
 
 1. **card** — the card's name and power limit (nvidia-smi), then the
-   builds: the flash-attention kernels (nvcc, from
-   ``torchft_tpu_torch/csrc``) and the C++ control-plane core (from
-   ``torchft_tpu_torch/_core``), both started together; the build's
+   builds: the flash-attention kernels and the attestation kernel (one
+   nvcc each, from ``torchft_tpu_torch/csrc``) and the C++ control-plane
+   core (from ``torchft_tpu_torch/_core``), all started together; the
+   attestation kernel must not spill either; the build's
    ``-Xptxas -v`` registers and spills of every kernel are logged, and the
    run fails if any kernel spills or if its SASS (``cuobjdump -sass``)
    lacks HGMMA or UTMALDG.
@@ -26,7 +28,14 @@ Phases:
    kernels' times at the lengths where the main path launches them (the
    split phase's shape, static, and the sp short step's, shift = Sk), by
    events and by a CUDA graph's replay; then the fused-vs-split backward
-   check of ``torchft_tpu_torch.ops.fused_bwd_check``.
+   check of ``torchft_tpu_torch.ops.fused_bwd_check``; the fused backward
+   20 times on the same inputs (static, shift 0 and shift Sk at the
+   slice's shape) beside forward launches on a second stream, dq, dk and
+   dv bitwise equal every time; and the attestation kernel
+   (``ops.attest``) bitwise against its plain version and numpy's
+   ``attest_fingerprint`` on leaves of f32, bf16, int64, bool and uint8
+   at odd sizes, a misaligned view, a host scalar and a 131M-element f32
+   leaf, then its time on the ft cell's 8.003 GB state beside its bound.
 3. **ft** — the main path: a native lighthouse and two replica groups
    (``python -m torchft_tpu_torch.train_lm``) on this one card at Llama-2-7B
    widths cut to 2 layers, batch 1 x 2048 tokens. Three steps, SIGKILL of
@@ -51,7 +60,7 @@ Phases:
 6. **wire** — the manager's wire rungs: a lighthouse and two replica
    groups on this card (``chip_smoke.py --wire-worker``); each builds the
    same Llama-2-7B-width 2-layer model with the flash kernels, computes
-   its gradients of three steps on 1 x 2048 tokens from its own data seed
+   its gradients of two steps on 1 x 2048 tokens from its own data seed
    and keeps them on the card, then reduces them with three ``Manager``
    allreduce + ``should_commit`` steps under each rung, a fresh Manager
    and ``HostCommunicator`` per rung: f32, bf16, int8 + error feedback
@@ -80,21 +89,34 @@ Phases:
    init params with a fresh ``Manager(shard_update=True)`` (AdamW with
    ``foreach`` pinned on both). The sharded run exchanges the gradients
    the sync run recorded at each step, after its own forward and
-   backward, and the phase logs per parameter how many elements of its
-   own gradients differ from them: the fused backward sums dq across k
-   tiles with f32 atomics, whose order can change between two passes on
-   the same inputs. Checks after every step: the sharded params bitwise equal to the sync path's on both
-   groups, equal
-   parameter hashes across the groups, the stripe state 1/2 of the sync
-   AdamW state, and the device memory held between steps lower by the
-   state saved; logs the put, stripe-update, allgather and assembly ms
-   beside the sync run's put ms.
+   backward, so the params check tests the update alone. Checks after
+   every step: the sharded run's own gradients bitwise equal to the
+   sync run's (the fused backward sums dq in a fixed order; 0 elements
+   may differ), the sharded params bitwise equal to the sync path's on
+   both groups, equal parameter hashes across the groups, the stripe
+   state 1/2 of the sync AdamW state, and the device memory held
+   between steps lower by the state saved; logs the put, stripe-update,
+   allgather and assembly ms beside the sync run's put ms.
+9. **attest** — the recovery plane the Manager runs by default (fleet
+   telemetry, state attestation, striped heal): a lighthouse with three
+   members per quorum and three ``train_lm`` groups at the ft cell's
+   widths. Group 1 runs a chaos sdc band (``TORCHFT_CHAOS``) that flips
+   one bit of its committed state; group 2 holds, is SIGKILLed and
+   restarts with another init seed. Checks: the lighthouse's one verdict
+   and one clear; on group 1 one flip, quarantine, re-heal (striped, 2
+   donors) and clear, the verdict within one boundary of the flip;
+   groups 0 and 2 never latch; the restarted group heals from 2 donors
+   and commits every step; equal state hashes and last digests on all
+   three; group 0's digest on the card equal to numpy's on a host copy
+   of its state; a digest at every vote boundary but each process's
+   first. Logs each group's digest ms per boundary and the striped
+   heal's wall and MB/s.
 
 Each phase's wall is logged. Launch counts are reset just before each
 driven path and read just after it. The line before the last is a JSON
 object with one entry per kernel: ``launches`` counts the ft phase (and
-the split and sp phases for their kernels), ``launches_overlap`` and
-``launches_shard`` the overlap and shard paths' own launches;
+the split and sp phases for their kernels), ``launches_overlap``,
+``launches_shard`` and ``launches_attest`` those paths' own launches;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. float32 matmuls are pinned to full precision
 (TF32 off) so the plain versions are exact references.
@@ -155,12 +177,18 @@ KERNELS = {
                        f"{_TPU}:380"),
     "bwd_fused_shift": ("flash_bwd_fused (shift)", "flash_bwd_fused_wgmma",
                         f"{_TPU}:420"),
+    # Not a Pallas kernel: the XLA-jitted state digest of the JAX Manager.
+    "attest_words": ("attest_words", "attest_leaf_sums",
+                     "torchft_tpu/manager.py:5223"),
 }
 CSRC = os.path.join("torchft_tpu_torch", "csrc")
 # Every CUDA kernel, all written on wgmma + TMA: their SASS must hold both,
 # and their build no spill.
 HOPPER_KERNELS = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
                   "flash_bwd_dkdv_wgmma", "flash_bwd_fused_wgmma")
+# The CUDA kernels not on wgmma (a byte reduction): their build must not
+# spill.
+PLAIN_KERNELS = ("attest_leaf_sums",)
 # (name, B, S, Sk, H, Hkv, D, causal); the first is the slice's shape,
 # "sp_split" the sp phase's short step (S_local = 128 per rank), "d32" the
 # smallest head dim, "tile_edge" one full and one half 128-row tile.
@@ -252,15 +280,18 @@ def phase_card() -> str:
 
     from torchft_tpu_torch._build_util import build_cuda
 
+    from torchft_tpu_torch.ops import attest
+
+    # One nvcc per CUDA source and the core's g++, all started together.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        kern = ex.submit(fa._lib)
-        core = ex.submit(_native.lib)
-        kern.result()
-        core.result()
+    with ThreadPoolExecutor(3) as ex:
+        builds = [ex.submit(f) for f in (fa._lib, attest._lib, _native.lib)]
+        for b in builds:
+            b.result()
     log(f"builds: kernels + control-plane core in "
         f"{time.perf_counter() - t0:.1f} s")
     check_build(build_cuda("flash_attention.cu"))
+    check_spills(build_cuda("attest.cu"), PLAIN_KERNELS)
     return line
 
 
@@ -334,6 +365,22 @@ def check_hopper_kernels(kernels: dict, sass: str) -> None:
                 check(op in body, f"{body.split()[0]}: no {op} in its SASS")
         log(f"sass: {kernel}: {len(bodies)} instantiations, each with "
             "HGMMA and UTMALDG")
+
+
+def check_spills(library: str, expect: tuple) -> dict:
+    """Logs registers and spills of every kernel of a library whose
+    kernels are not on wgmma; fails if one spills or if a kernel of
+    ``expect`` is missing."""
+    with open(f"{library}.log") as f:
+        kernels = ptxas_report(f.read())
+    for name, info in kernels.items():
+        log(f"ptxas: {name} {info}")
+        check(info.get("spill_stores", 0) == 0 and
+              info.get("spill_loads", 0) == 0, f"{name} spills: {info}")
+    for kernel in expect:
+        check(any(kernel in n for n in kernels),
+              f"ptxas reported no {kernel}")
+    return kernels
 
 
 def check_build(library: str) -> dict:
@@ -456,6 +503,120 @@ def _short_times(case: str, args: tuple, shape: tuple, shift=None) -> None:
         log(f"time[{n}{sfx} @ {case} S={s} Sk={sk}] kernel_ms={ms:.4f} "
             f"graph_ms={graph_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
             f"bound_share={bound_ms / graph_ms:.3f}")
+
+
+# Repeats of the fused backward on the same inputs that must agree bitwise
+# (ROADMAP C6): the ft shape (static causal) and the sp ring's steps on
+# 2048 local tokens (shift 0 on the diagonal block, shift Sk on a past one).
+DETERMINISM_REPEATS = 20
+DETERMINISM_SHIFTS = (None, 0, 2048)
+
+
+def _fused_determinism(q, k, v, do) -> dict:
+    """The fused backward :data:`DETERMINISM_REPEATS` times on the same
+    inputs, each beside forward launches on a second stream that vary how
+    its blocks are dispatched; dq, dk and dv must be bitwise equal to the
+    first run's. Returns the differing elements per shift mode."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    h, h_kv, sk = q.shape[2], k.shape[2], k.shape[1]
+    qh, kh, vh = fa.to_bh(q), fa.to_bh(k), fa.to_bh(v)
+    side = torch.cuda.Stream()
+    out = {}
+    for shift in DETERMINISM_SHIFTS:
+        causal = shift is None
+        o, lse = fa.flash_fwd(qh, kh, vh, h, h_kv, causal, shift)
+        doh, delta = fa.bwd_inputs(do, o)
+        args = (qh, kh, vh, doh, lse, delta, h, h_kv, causal, shift)
+        first = fa.flash_bwd_fused(*args)
+        differ = 0
+        for r in range(DETERMINISM_REPEATS):
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(r % 3):
+                    fa.flash_fwd(qh, kh, vh, h, h_kv, causal, shift)
+            again = fa.flash_bwd_fused(*args)
+            differ += sum(int((a != b).sum()) for a, b in zip(again, first))
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        label = "static" if causal else f"shift={shift}"
+        log(f"determinism[bwd_fused {label}]: {DETERMINISM_REPEATS} repeats "
+            f"beside a second stream, differing elements of dq/dk/dv "
+            f"{differ}")
+        check(differ == 0, f"fused backward ({label}) not bitwise equal "
+              f"across repeats: {differ} elements differ")
+        out[label] = differ
+    return out
+
+
+def _attest_state_leaves(gen: torch.Generator) -> list:
+    """Leaves of the ft cell's committed state on the card, in its pytree
+    order's shapes: the 2-layer 7B-width model's parameters and AdamW's
+    two moments of each (3 x 666,914,816 f32 = 8.003 GB), random."""
+    from torchft_tpu_torch.models.transformer import (Transformer,
+                                                      llama2_7b_config)
+
+    model = Transformer(llama2_7b_config(num_layers=WIRE_LAYERS),
+                        device="meta")
+    shapes = [p.shape for _, p in sorted(model.named_parameters())]
+    return [torch.randn(sh, generator=gen, device="cuda")
+            for sh in shapes for _ in range(3)]
+
+
+def _attest_check(rows: dict, gen: torch.Generator) -> None:
+    """The attestation kernel against its plain version and numpy's
+    ``attest_fingerprint`` of a host copy, bitwise: leaves of f32, bf16,
+    int64, bool and uint8 at odd sizes, a leaf that starts off a 16-byte
+    boundary, host scalars among them (the optimizer's step), and one
+    f32 leaf of 131,072,000 elements (the embedding's, past the u32
+    wraparound of every word); then its time on the ft cell's state
+    (8.003 GB) against the bound."""
+    from torchft_tpu_torch import serialization
+    from torchft_tpu_torch.ops import attest
+
+    raw = torch.randint(0, 256, (4099,), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    leaves = [
+        torch.randn(1001, generator=gen, device="cuda"),
+        torch.randn(37, 3, generator=gen, device="cuda").bfloat16(),
+        torch.randint(-2 ** 40, 2 ** 40, (13,), generator=gen,
+                      device="cuda"),
+        torch.randint(0, 2, (17,), generator=gen, device="cuda").bool(),
+        raw,
+        raw[3:],  # a view 3 bytes past the allocation's alignment
+        torch.tensor(7.0),  # a CPU scalar, like AdamW's step
+        torch.randn(32000, 4096, generator=gen, device="cuda"),
+        torch.randn(4096, generator=gen, device="cuda"),
+    ]
+    got = attest.attest_words(leaves)
+    plain = attest.words_plain(leaves)
+    host = serialization.attest_fingerprint([x.cpu() for x in leaves])
+    log(f"attest: kernel {serialization.attest_combine(got)} plain "
+        f"{serialization.attest_combine(plain)} numpy {host}")
+    check(got == plain, "attest_words disagrees with its plain version")
+    check(serialization.attest_combine(got) == host,
+          "attest_words disagrees with numpy's attest_fingerprint")
+    for i, leaf in enumerate(leaves):
+        one = attest.attest_words([leaf])
+        check(one == attest.words_plain([leaf]),
+              f"attest_words disagrees with its plain version on leaf {i} "
+              f"({leaf.dtype}, {tuple(leaf.shape)})")
+    del leaves
+    state = _attest_state_leaves(gen)
+    nbytes = sum(x.numel() * x.element_size() for x in state)
+    check(attest.attest_words(state) == attest.words_plain(state),
+          "attest_words disagrees with its plain version on the state")
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    rows["attest_words"] = {
+        "max_abs_err": 0.0, "ms": cuda_ms(lambda: attest.attest_words(state)),
+        "plain_ms": cuda_ms(lambda: attest.words_plain(state), iters=1,
+                            warmup=0),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes"}
+    r = rows["attest_words"]
+    log(f"time[attest_words] state {nbytes / 1e9:.3f} GB in {len(state)} "
+        f"leaves: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.1f} "
+        f"bound_ms={bound_ms:.4f} (bytes) "
+        f"bound_share={bound_ms / r['ms']:.3f}")
 
 
 def phase_kernels() -> dict:
@@ -606,6 +767,8 @@ def phase_kernels() -> dict:
         log(f"fused_bwd_check: fused vs split rel={worst:.3e}")
         check(worst <= fused_bwd_check.TOLERANCE,
               "fused backward disagrees with the split backward")
+        _fused_determinism(q, k, v, do)
+    _attest_check(rows, gen)
     return rows
 
 
@@ -625,14 +788,15 @@ FT_ARGS: list = []
 
 
 def _spawn(group: int, seed: int, lighthouse: str, workdir: str,
-           steps: int, hold: int = 0, extra: dict = None) -> subprocess.Popen:
+           steps: int, hold: int = 0, extra: dict = None,
+           groups: int = 2) -> subprocess.Popen:
     env = dict(os.environ)
     env.update(FT_ENV)
     env.update(extra or {})
     if hold:
         env["HOLD_AFTER_STEP"] = str(hold)
     env.update(
-        REPLICA_GROUP_ID=str(group), NUM_REPLICA_GROUPS="2",
+        REPLICA_GROUP_ID=str(group), NUM_REPLICA_GROUPS=str(groups),
         TORCHFT_LIGHTHOUSE=lighthouse, TOTAL_STEPS=str(steps),
         INIT_SEED=str(seed), DATA_DIR=workdir, TORCHFT_HEAL_STALL_SEC="120",
         REPORT_FILE=os.path.join(workdir, f"report_{group}_{seed}.json"),
@@ -642,6 +806,27 @@ def _spawn(group: int, seed: int, lighthouse: str, workdir: str,
         [sys.executable, "-m", "torchft_tpu_torch.train_lm", *FT_ARGS],
         cwd=ROOT, env=env, stdout=open(log_path, "w"),
         stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _wait_held(proc: subprocess.Popen, workdir: str, group: int, seed: int,
+               others: list) -> None:
+    """Until ``group``'s report says it holds after its HOLD_AFTER_STEP
+    step; fails if any process exits first."""
+    progress = os.path.join(workdir, f"report_{group}_{seed}.json")
+    deadline = time.time() + 600
+    while time.time() < deadline:
+        if os.path.exists(progress):
+            with open(progress) as f:
+                try:
+                    rep = json.load(f)
+                except json.JSONDecodeError:
+                    rep = {}
+            if rep.get("held"):
+                return
+        check(all(p.poll() is None for p in [proc, *others]),
+              "a replica group exited before the kill")
+        time.sleep(0.05)
+    raise SmokeError(f"group {group} never reached its held step")
 
 
 def _read_report(workdir: str, group: int, seed: int) -> dict:
@@ -680,22 +865,7 @@ def _kill_and_heal(procs: list, tag: str, extra: dict) -> tuple:
         # overlap the held step's exchange is still in flight.
         g1 = _spawn(1, 1, addr, workdir, total, hold=3, extra=extra)
         procs += [g0, g1]
-        progress = os.path.join(workdir, "report_1_1.json")
-        deadline = time.time() + 600
-        while time.time() < deadline:
-            if os.path.exists(progress):
-                with open(progress) as f:
-                    try:
-                        rep = json.load(f)
-                    except json.JSONDecodeError:
-                        rep = {}
-                if rep.get("held"):
-                    break
-            check(g1.poll() is None and g0.poll() is None,
-                  "a replica group exited before the kill")
-            time.sleep(0.05)
-        else:
-            raise SmokeError("group 1 never reached step 3")
+        _wait_held(g1, workdir, 1, 1, [g0])
         os.killpg(g1.pid, signal.SIGKILL)
         g1.wait()
         log(f"{tag}: SIGKILLed group 1 after step 3 "
@@ -770,6 +940,140 @@ def phase_overlap(procs: list) -> dict:
           "kill" % (r0["overlap_grads_dropped"], r0["aborted_steps"]))
     launches = {n: r0["launches"][n] + r1["launches"][n] for n in KERNELS}
     return {"launches": launches, "reports": [r0, r1]}
+
+
+# The attest cell: the ft cell's model in three groups on this card (a
+# strict majority needs three voters), ATTEST_STEPS steps. Group 1 carries
+# the chaos sdc band: one bit flip, drawn at a boundary where it is a
+# participant. It heals at step 1 (a non-primary of the first quorum), and
+# a flip drawn there would be overwritten by that heal, so the band's seed
+# makes its first draw miss (step 1) and its second hit (step 3; no draw
+# at step 2, while the heal flag holds). Group 2 holds after
+# ATTEST_HOLD, is SIGKILLed and restarted with another init seed, and
+# heals striped from groups 0 and 1.
+ATTEST_GROUPS = 3
+ATTEST_STEPS = 8
+ATTEST_HOLD = 6
+ATTEST_CHAOS = "seed=2;sdc:sdc_flip_rate=0.5,max_faults=1"
+SDC_LADDER = ("sdc_chaos_flips_total", "sdc_quarantines_total",
+              "sdc_reheals_total", "sdc_quarantine_clears_total")
+
+
+def _fleet_status(lighthouse: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{lighthouse}/fleet/status.json",
+                                timeout=10) as resp:
+        return json.load(resp)
+
+
+def phase_attest(procs: list) -> dict:
+    """The recovery plane with its defaults (fleet telemetry,
+    attestation, striped heal) on the main path: see ATTEST_* above."""
+    from torchft_tpu_torch._native import Lighthouse
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_attest_")
+    lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}",
+                    min_replicas=ATTEST_GROUPS, join_timeout_ms=2000,
+                    quorum_tick_ms=50)
+    addr = lh.address()
+    try:
+        t0 = time.perf_counter()
+        g0 = _spawn(0, 0, addr, workdir, ATTEST_STEPS, groups=ATTEST_GROUPS,
+                    extra={"REPORT_HOST_DIGEST": "1"})
+        g1 = _spawn(1, 1, addr, workdir, ATTEST_STEPS, groups=ATTEST_GROUPS,
+                    extra={"TORCHFT_CHAOS": ATTEST_CHAOS})
+        g2 = _spawn(2, 2, addr, workdir, ATTEST_STEPS, hold=ATTEST_HOLD,
+                    groups=ATTEST_GROUPS)
+        procs += [g0, g1, g2]
+        _wait_held(g2, workdir, 2, 2, [g0, g1])
+        before = _read_report(workdir, 2, 2)
+        os.killpg(g2.pid, signal.SIGKILL)
+        g2.wait()
+        log(f"attest: SIGKILLed group 2 after step {ATTEST_HOLD} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        g2b = _spawn(2, 9, addr, workdir, ATTEST_STEPS, groups=ATTEST_GROUPS)
+        procs.append(g2b)
+        for proc, what in ((g0, "group 0"), (g1, "group 1"),
+                           (g2b, "restarted group 2")):
+            _wait(proc, 900, f"attest {what}")
+        fleet = _fleet_status(addr)["fleet"]
+        st = lh.status()
+        log(f"attest: lighthouse sdc_verdicts_total="
+            f"{fleet['sdc_verdicts_total']} sdc_clears_total="
+            f"{fleet['sdc_clears_total']} quarantined="
+            f"{fleet['sdc_quarantined']} fast_path_hits="
+            f"{st['fast_path_hits']} slow_path_rounds="
+            f"{st['slow_path_rounds']}")
+    finally:
+        lh.shutdown()
+        for name in os.listdir(workdir):
+            if name.endswith(".log"):
+                shutil.copy(os.path.join(workdir, name),
+                            os.path.join(OUT_DIR, f"attest_{name}"))
+    reps = [_read_report(workdir, 0, 0), _read_report(workdir, 1, 1),
+            _read_report(workdir, 2, 9)]
+    shutil.rmtree(workdir, ignore_errors=True)
+    for r in [*reps, before]:
+        sdc = r["sdc"]
+        per = sdc["sdc_digest_ms_total"] / max(sdc["sdc_digests_total"], 1)
+        log(f"attest: group {r['group']} (seed {r['seed']}) steps="
+            f"{r['step']} committed={r['committed']} step_s={r['step_s']} "
+            f"heal_count={r['heal_count']} heal_ms={r['heal_ms']} "
+            f"heal_MB={r['heal_bytes'] / 1e6:.1f} heal_striped_donors="
+            f"{r['heal_striped_donors']} sdc={sdc} digest_ms_per_boundary="
+            f"{per:.3f} events={r['sdc_events']} launches={r['launches']} "
+            f"digest={r['state_digest']} hash={r.get('state_hash', '')[:16]}")
+    r0, r1, r2 = reps
+    check(fleet["sdc_verdicts_total"] == 1 and fleet["sdc_clears_total"] == 1,
+          f"attest: lighthouse verdicts {fleet['sdc_verdicts_total']} / "
+          f"clears {fleet['sdc_clears_total']}, expected 1 / 1")
+    for k in SDC_LADDER:
+        check(r1["sdc"][k] == 1, f"attest: group 1 {k} = {r1['sdc'][k]}")
+    # The flip is logged with the step whose boundary it follows (N); the
+    # first digest it changes is step N + 1's, and that vote's verdict
+    # arrives with step N + 2's quorum, where the latch is logged.
+    steps = {e["event"]: e["step"] for e in r1["sdc_events"]}
+    check(steps["sdc_divergence"] - steps["sdc_chaos_flip"] <= 2,
+          f"attest: group 1's verdict came more than one boundary after "
+          f"its flip ({steps})")
+    check(r1["heal_striped_donors"] == 2,
+          f"attest: group 1's re-heal took {r1['heal_striped_donors']} "
+          "donors, expected 2")
+    for r in (r0, r2, before):
+        check(all(r["sdc"][k] == 0 for k in SDC_LADDER),
+              f"attest: group {r['group']} latched: {r['sdc']}")
+    check(r2["heal_count"] >= 1 and r2["heal_striped_donors"] == 2,
+          f"attest: restarted group 2 healed {r2['heal_count']} times from "
+          f"{r2['heal_striped_donors']} donors, expected 2")
+    check(all(r2["committed"]) and r2["aborted_steps"] == 0,
+          "attest: a post-heal step of the restarted group 2 aborted")
+    check(len({r["state_hash"] for r in reps}) == 1,
+          "attest: groups ended with different state")
+    check(len({r["state_digest"] for r in reps}) == 1
+          and reps[0]["state_digest"],
+          f"attest: last digests differ: {[r['state_digest'] for r in reps]}")
+    fd = r0["final_digest"]
+    check(fd["card"] == fd["host"], f"attest: group 0's card digest "
+          f"{fd['card']} != numpy's on its host copy {fd['host']}")
+    for r in reps:
+        # Every vote boundary but a process's first pushes a digest.
+        votes = r["committed_steps"] + r["aborted_steps"]
+        check(r["sdc"]["sdc_digests_total"] == votes - 1,
+              f"attest: group {r['group']} made "
+              f"{r['sdc']['sdc_digests_total']} digests at {votes} vote "
+              "boundaries")
+        check(all(x == x and abs(x) != float("inf") for x in r["losses"]),
+              f"attest: group {r['group']}: non-finite loss")
+        check(r["params_on_cpu"] == 0,
+              f"attest: group {r['group']}: parameters left on the CPU")
+    launches = {n: sum(r["launches"][n] for r in reps) for n in KERNELS}
+    check(launches["attest_words"] > 0 and launches["bwd_fused"] > 0,
+          f"attest: kernels not launched ({launches})")
+    log(f"attest: restarted group 2's striped heal {r2['heal_ms']} ms for "
+        f"{r2['heal_bytes'] / 1e6:.1f} MB "
+        f"({r2['heal_bytes'] / 1e3 / max(r2['heal_ms'], 1e-9):.1f} MB/s)")
+    return {"launches": launches, "reports": reps}
 
 
 # ------------------------------------------------------------ phase 4
@@ -1032,11 +1336,10 @@ def phase_sp(procs: list) -> dict:
 
 # The wire cell: Llama-2-7B widths cut to 2 layers; each group's gradients
 # of WIRE_STEPS steps on 1 x WIRE_SEQ tokens, computed once and kept on the
-# card (a recomputed gradient differs in its last bits: the fused
-# backward's dq atomics), then reduced under each rung by a fresh Manager.
+# card, then reduced under each rung by a fresh Manager.
 WIRE_LAYERS = 2
 WIRE_SEQ = 2048
-WIRE_STEPS = 3
+WIRE_STEPS = 2  # step 2 folds step 1's int8 residual
 WIRE_RUNGS = ("f32", "bf16", "int8_device", "int8_host")
 # Relative error of the whole reduced tree against the f32 rung's: bf16
 # at twice its rounding bound (2^-8 per contribution; the H100 reads
@@ -1397,14 +1700,11 @@ def shard_worker(group: int, lighthouse: str, report: str) -> int:
     ``Manager(shard_update=True)``. The sharded run exchanges the
     gradients the sync run recorded at each step, after its own forward
     and backward, whose elements that differ from them are logged per
-    parameter: the check holds the sharded update to the sync update on
-    the same gradients, as JAX's
+    parameter: the params check holds the sharded update to the sync
+    update on the same gradients, as JAX's
     ``test_shard.py::test_bitwise_vs_sync_path`` feeds both fixed
-    gradients. The two runs' own gradients can differ: the fused backward
-    sums dq across k tiles with f32 atomics, and the per-parameter counts
-    show it (a difference starts at one layer's q projection and norm
-    scale, with its k and v projections equal, and spreads to the layers
-    below)."""
+    gradients, and the phase checks that the two runs' own gradients
+    agree bitwise (the fused backward's fixed-order dq sum)."""
     if not torch.cuda.is_available():
         raise SmokeError("the shard worker needs a CUDA device")
     from torchft_tpu_torch.backends.host import HostCommunicator
@@ -1564,6 +1864,14 @@ def phase_shard(procs: list) -> dict:
                 f"elements {sum(b['grad_diff'].values())}, per parameter "
                 f"{b['grad_diff'] or 'none'}")
     for r in reps:
+        for b in r["shard"]:
+            # Two backward passes on the same params and batch are
+            # bitwise equal (the fused backward's fixed-order dq sum).
+            check(not b["grad_diff"],
+                  f"shard group {r['group']} step {b['step']}: the sharded "
+                  f"run's own gradients differ from the sync run's "
+                  f"({b['grad_diff']})")
+    for r in reps:
         for a, b in zip(r["sync"], r["shard"]):
             log(f"shard: group {r['group']} step {a['step']} "
                 f"sync put_ms={a['allreduce_put_ms_total']:.1f} "
@@ -1619,8 +1927,9 @@ def phase_shard(procs: list) -> dict:
 
 def main(argv: list) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases",
-                    default="card,kernels,ft,split,sp,wire,overlap,shard")
+    ap.add_argument(
+        "--phases",
+        default="card,kernels,ft,split,sp,wire,overlap,shard,attest")
     # A rank of the sp phase's group, or a group of the wire phase
     # (started by the phase itself).
     ap.add_argument("--sp-worker", type=int, default=None)
@@ -1664,7 +1973,7 @@ def main(argv: list) -> int:
         if "ft" in phases:
             launches.update(
                 {n: c for n, c in timed("ft", phase_ft, procs)["launches"]
-                 .items() if n in ("fwd", "bwd_fused")})
+                 .items() if n in ("fwd", "bwd_fused", "attest_words")})
         if "split" in phases:
             split = timed("split", phase_split)
             launches["bwd_dq"] = split["bwd_dq"]
@@ -1673,11 +1982,12 @@ def main(argv: list) -> int:
             launches.update(timed("sp", phase_sp, procs)["launches"])
         if "wire" in phases:
             timed("wire", phase_wire, procs)
-        # The overlap and shard paths run the forward and the fused
-        # backward too: each path's own counts go under its own key.
+        # The overlap, shard and attest paths run the forward and the
+        # fused backward too: each path's own counts go under its own key.
         added = {}
         for name, phase in (("overlap", phase_overlap),
-                            ("shard", phase_shard)):
+                            ("shard", phase_shard),
+                            ("attest", phase_attest)):
             if name in phases:
                 added[name] = timed(name, phase, procs)["launches"]
     finally:

@@ -115,7 +115,9 @@ def test_two_groups_leave_rejoin_heal_bitwise(fast_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import no JAX."""
+    """Every module of the port, and chip_smoke.py, import no JAX; nor
+    do the attestation wrapper's words (``csrc/attest.cu``'s plain route
+    on the CPU) and the numpy fingerprint, run once."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torchft_tpu_torch, chip_smoke\n"
@@ -123,6 +125,13 @@ def test_port_imports_no_jax():
         "                               'torchft_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'torchft_tpu_torch.parallel.ring_attention' in sys.modules\n"
+        "assert 'torchft_tpu_torch.ops.attest' in sys.modules\n"
+        "import torch\n"
+        "from torchft_tpu_torch import serialization\n"
+        "from torchft_tpu_torch.ops import attest\n"
+        "leaves = [torch.ones(3), torch.zeros(2, dtype=torch.bfloat16)]\n"
+        "assert serialization.attest_combine(attest.attest_words(leaves))"
+        " == serialization.attest_fingerprint(leaves)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'torchft_tpu')]\n"
         "assert not bad, bad\n")

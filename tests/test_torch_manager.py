@@ -34,6 +34,7 @@ from torchft_tpu_torch._native import QuorumResult
 from torchft_tpu_torch.backends import host as thost
 from torchft_tpu_torch.checkpointing import CheckpointServer
 from torchft_tpu_torch.communicator import CommunicatorError, Int8Wire
+from torch_fakes import fake_quorum_stores  # noqa: F401
 
 pytestmark = pytest.mark.port
 
@@ -162,10 +163,9 @@ def _allreduce(mod, world, healer=None, bucket_bytes=1024, rung="f32",
         q = _q(qcls, max_rank=None if heal else r,
                max_world_size=world - (healer is not None),
                replica_rank=r, replica_world_size=world, heal=False)
-        # The JAX Manager's striped-heal advertisement would dial the
-        # scripted store address; the port has no striped heal.
-        extra = (dict(port_kw) if mod is tmanager
-                 else {"heal_striped": False, **jax_kw})
+        # Both packages at their striped-heal default: the healset
+        # advertisements land in the test's fake quorum store.
+        extra = dict(port_kw) if mod is tmanager else dict(jax_kw)
         m = _make(mod, comms[r], _client(q),
                   allreduce_bucket_bytes=bucket_bytes, **extra)
         if staging is not None:

@@ -38,6 +38,7 @@ from torchft_tpu_torch.backends import host as thost
 from torchft_tpu_torch.communicator import DummyCommunicator
 from torchft_tpu_torch.optim import DelayedOptimizer, OptimizerWrapper
 from torchft_tpu_torch.parallel.step import FTTrainer
+from torch_fakes import fake_quorum_stores  # noqa: F401
 
 pytestmark = pytest.mark.port
 
@@ -538,8 +539,7 @@ def _drive_deferred(mod, script):
             else DummyCommunicator())
     client = _client(_q(JQuorumResult) if jax_side else _q())
     client.should_commit.side_effect = list(votes)
-    extra = {"heal_striped": False} if jax_side else {}
-    m = _make(mod, comm, client, overlap_steps=1, **extra)
+    m = _make(mod, comm, client, overlap_steps=1)
     p0 = np.asarray([2.0, 4.0], np.float32)
     if jax_side:
         opt = jDelayedOptimizer(m, optax.sgd(0.5))
@@ -631,8 +631,7 @@ def _engine(mod, comm, client, overlap=1, shard=False):
             comm=comm, load_state_dict=load, state_dict=save,
             min_replica_size=1, _manager_client=client,
             checkpoint_bind_host="127.0.0.1", allreduce_bucket_bytes=16,
-            overlap_steps=overlap, shard_update=shard,
-            **({"heal_striped": False} if jax_side else {}))
+            overlap_steps=overlap, shard_update=shard)
 
     if jax_side:
         return jFTTrainer(
@@ -798,8 +797,7 @@ def _drive_wrapper(mod):
                         replica_world_size=1) if jax_side
                      else _q(max_world_size=1, replica_world_size=1))
     client.should_commit.side_effect = [False, True, True]
-    m = _make(mod, comm, client,
-              **({"heal_striped": False} if jax_side else {}))
+    m = _make(mod, comm, client)
     p0 = np.asarray([1.0, 2.0], np.float32)
     if jax_side:
         opt = jOptimizerWrapper(m, optax.sgd(0.5), {"w": jnp.asarray(p0)})

@@ -37,6 +37,7 @@ from torchft_tpu_torch.backends import host as thost
 from torchft_tpu_torch.optim import FTOptimizer, init_adam_state
 from torchft_tpu_torch.parallel.step import FTTrainer
 from torchft_tpu_torch.utils import tree_flatten
+from torch_fakes import fake_quorum_stores  # noqa: F401
 
 pytestmark = pytest.mark.port
 
@@ -61,8 +62,7 @@ def _run(mod, world, body, healer=None, rung="f32", bucket_bytes=1024,
         if echo_vote:
             client.should_commit.side_effect = \
                 lambda **kw: kw["should_commit"]
-        kw = (dict(port_kw) if mod is tmanager
-              else {"heal_striped": False, **jax_kw})
+        kw = dict(port_kw) if mod is tmanager else dict(jax_kw)
         kw.update(extra)
         m = _make(mod, comms[r], client, allreduce_bucket_bytes=bucket_bytes,
                   **kw)

@@ -27,6 +27,7 @@ from torchft_tpu_torch import utils as tutils
 from torchft_tpu_torch._native import QuorumResult
 from torchft_tpu_torch.backends import host as thost
 from torchft_tpu_torch.communicator import BF16
+from torch_fakes import fake_quorum_stores  # noqa: F401
 
 pytestmark = pytest.mark.port
 

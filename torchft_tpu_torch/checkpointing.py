@@ -31,17 +31,26 @@ TPU-native differences from the reference:
   transient state-sized copy in device memory while a heal is being
   served.
 
-The port serves heal and observability requests only, from one donor per
-transfer (with failover): the JAX package's publication (``/publish``) and
-RAM-tier (``/ramckpt``) routes, its lock-streaming mode, its divergence
-quarantine gate and its striped multi-donor fetch belong to parts not yet
-ported.
+* **Striped heals.** Given two or more donors serving the same step
+  (``load_from_address(..., donor_addrs=)``), a healer partitions the
+  missing leaves into contiguous byte-balanced stripes, one per donor,
+  and fetches them concurrently; a donor that dies mid-stripe is dropped
+  and only its remaining leaves move to the survivors. Every leaf
+  verifies against the one adopted manifest, whoever served it.
+* **Divergence quarantine.** :meth:`CheckpointServer.set_quarantined`
+  makes every state-serving GET answer 503 while the owning Manager is
+  under a state-attestation verdict.
+
+The port serves heal and observability requests only: the JAX package's
+publication (``/publish``) and RAM-tier (``/ramckpt``) routes and its
+lock-streaming mode belong to parts not yet ported.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import random
 import threading
 import time
 import urllib.parse
@@ -61,6 +70,7 @@ from torchft_tpu_torch.serialization import (
     _from_carrier,
     _match_entries,
     _read_exact_into,
+    balanced_ranges,
     device_put_like,
     manifest_from,
     plan_pytree,
@@ -148,6 +158,12 @@ class _HealSession:
         self.rounds = 0                     # data fetch rounds (attempts)
         self.failovers = 0
         self.digest_mismatches = 0
+        # Striped mode: donors that actually landed committed leaves,
+        # and the lock making commit/byte accounting safe under the
+        # per-donor fetch threads (single-donor fetches never contend).
+        self.donors_used: set = set()
+        self.stripe_deaths = 0              # striped donors dropped dead
+        self.lock = threading.Lock()
         # Persistent per-donor connections shared by every attempt of
         # this transfer: Range waves stop paying a TCP dial per span.
         self.pool = transport.ConnectionPool()
@@ -210,21 +226,28 @@ class _HealSession:
                 arr = np.empty(entry["shape"], _carrier(entry["dtype"]))
                 self.commit(i, arr, zlib.crc32(b""))
 
-    def commit(self, i: int, arr: np.ndarray, crc: int) -> None:
+    def commit(self, i: int, arr: np.ndarray, crc: int,
+               donor: Optional[str] = None) -> None:
         entry, tleaf = self.pairs[i]
         leaf = _from_carrier(arr, entry["dtype"])
-        self.committed[i] = (self.device_put_fn(leaf, tleaf)
-                             if self.device_put_fn is not None else leaf)
-        self.crcs[i] = crc
-        self.committed_bytes += int(entry["nbytes"])
+        placed = (self.device_put_fn(leaf, tleaf)
+                  if self.device_put_fn is not None else leaf)
+        with self.lock:
+            self.committed[i] = placed
+            self.crcs[i] = crc
+            self.committed_bytes += int(entry["nbytes"])
+            if donor is not None:
+                self.donors_used.add(donor)
 
     def note_bytes(self, n: int) -> None:
-        self.bytes_read += n
-        if self.rounds > 1:
-            self.bytes_resumed += n
+        with self.lock:
+            self.bytes_read += n
+            if self.rounds > 1:
+                self.bytes_resumed += n
 
     def missing(self) -> List[int]:
-        return [i for i in self.arr_order if i not in self.committed]
+        with self.lock:
+            return [i for i in self.arr_order if i not in self.committed]
 
     def complete(self) -> bool:
         return (self.pairs is not None
@@ -251,6 +274,16 @@ class _HealSession:
         single span covering the whole body; later attempts cover only
         what's left."""
         return self.spans_for(self.missing())
+
+    def stripes(self, n: int) -> List[List[int]]:
+        """Partition the missing leaves into ``n`` contiguous,
+        byte-balanced groups (group ``k`` for donor ``k``; may be empty
+        when little is left). Contiguity keeps each donor's fetch a
+        handful of coalesced Range requests instead of a shotgun of
+        per-leaf ones."""
+        missing = self.missing()
+        sizes = [int(self.pairs[i][0]["nbytes"]) for i in missing]
+        return [missing[a:b] for a, b in balanced_ranges(sizes, n)]
 
     def assemble(self) -> Any:
         leaves = [self.committed[i] for i in range(len(self.pairs))]
@@ -315,6 +348,9 @@ class CheckpointServer:
         # exposition) on the same socket + auth gate. Snapshot reads of
         # immutable/locked state — like /publish, never step-gated.
         self._obs: Optional[Dict[str, Any]] = None
+        # Divergence-verdict serve gate (set_quarantined): while set,
+        # every state-serving GET answers 503.
+        self._quarantined = False
 
         # Host on the transport substrate's shared server core (async
         # event loop by default, TORCHFT_ASYNC_SERVER=0 for the legacy
@@ -349,6 +385,14 @@ class CheckpointServer:
                 handler.close_connection = True
                 return
             self._serve_observability(handler)
+            return
+        if self._quarantined:
+            # Divergence verdict latched on the owning Manager: every
+            # byte this server could hand out came from state the fleet
+            # voted divergent. Refuse hard — a peer holding our cached
+            # address rotates to an attested donor — while observability
+            # above stays up for the operator reading the verdict.
+            handler.send_error(503, "quarantined (divergence verdict)")
             return
         prefix = "/checkpoint/"
         if not handler.path.startswith(prefix):
@@ -419,6 +463,16 @@ class CheckpointServer:
             logger.exception("checkpoint stream failed mid-transfer "
                              "(healer will see a truncated stream)")
             raise
+
+    def set_quarantined(self, flag: bool) -> None:
+        """Sticky divergence-verdict serve gate: while set, every
+        state-serving GET (``/checkpoint/*``) refuses with 503, so a peer
+        that cached this server's address cannot fetch bytes the fleet
+        voted divergent. Cleared when the lighthouse confirms the
+        re-attested digest (the Manager's verdict-clear path)."""
+        with self._cond:
+            self._quarantined = bool(flag)
+            self._cond.notify_all()
 
     def _capture_locked(self) -> Tuple[Any, Any]:
         """State + plan to stream for the current step. Requires _cond held.
@@ -559,6 +613,8 @@ class CheckpointServer:
                           donors: Optional[Callable[[int], Optional[str]]]
                           = None,
                           max_donor_failovers: int = 3,
+                          donor_addrs: Optional[List[str]] = None,
+                          stripe_seed: Optional[int] = None,
                           progress_cb: Optional[Callable[[int, int], None]]
                           = None,
                           tracer: Optional[Any] = None) -> T:
@@ -595,14 +651,28 @@ class CheckpointServer:
         was already verified, which is the runtime check of the
         same-step-snapshots-are-bitwise-identical invariant.
 
+        ``donor_addrs``, when it names two or more live donors serving
+        the SAME step, enables the striped fetch: the missing leaves are
+        partitioned into contiguous byte-balanced stripes, one per
+        donor, fetched concurrently; every leaf still digest-verifies
+        against the one adopted manifest, which is what makes mixing
+        donors sound. A donor that dies mid-stripe is dropped and only
+        its REMAINING stripe is reassigned to the survivors on the next
+        round (``bytes_resumed`` counts exactly that traffic); when the
+        whole set dies the ``donors`` failover resolver above is the last
+        resort. ``stripe_seed`` deterministically shuffles the donor
+        order, as the JAX package's ``random.Random(seed)`` does, so
+        concurrent healers spread their load.
+
         ``stats``, when given, is filled with truthful counters:
         ``bytes`` (payload bytes actually read off the wire, across all
         attempts — NOT the donor's Content-Length claim),
         ``payload_bytes`` (full serialized size), ``bytes_resumed``
         (bytes fetched by resumed attempts after the first),
-        ``donor_failovers``, ``digest_mismatches``, and ``attempts`` —
-        filled on failure too, so a FAILED heal's wire cost and attempt
-        history still reach the caller's metrics.
+        ``donor_failovers``, ``digest_mismatches``, ``attempts``,
+        ``donors_used`` and ``stripe_donor_deaths`` — filled on failure
+        too, so a FAILED heal's wire cost and attempt history still reach
+        the caller's metrics.
         ``progress_cb(bytes_committed, payload_bytes)`` fires after every
         verified leaf. Chaos injection uses per-donor endpoints
         ``heal:<host:port>`` (channel ``heal``)."""
@@ -617,10 +687,22 @@ class CheckpointServer:
         session = _HealSession(target,
                                device_put_like if device_put else None)
         session.tracer = tracer
+        # Striped donor set: seed-shuffled so concurrent healers spread
+        # their first streams; the quorum's primary rides along
+        # (deduped) as one donor among equals.
+        stripe: List[str] = []
+        if donor_addrs:
+            stripe = list(dict.fromkeys(list(donor_addrs) + [address]))
+            if len(stripe) >= 2:
+                random.Random(stripe_seed).shuffle(stripe)
+                address = stripe[0]
+            else:
+                stripe = []
         try:
             out = cls._run_heal_loop(
                 session, address, stall, auth_token, pol, deadline,
-                donors, max_donor_failovers, progress_cb, retry_stats)
+                donors, max_donor_failovers, progress_cb, retry_stats,
+                stripe=stripe)
         finally:
             # Fill stats on BOTH outcomes: a failed heal's wire cost,
             # attempts, and failovers are what a "heal keeps failing"
@@ -633,16 +715,21 @@ class CheckpointServer:
                 stats["digest_mismatches"] = float(
                     session.digest_mismatches)
                 stats["attempts"] = float(session.rounds)
+                stats["donors_used"] = float(
+                    max(len(session.donors_used), 1))
+                stats["stripe_donor_deaths"] = float(
+                    session.stripe_deaths)
                 stats["redials_avoided"] = float(
                     session.pool.redials_avoided)
             session.pool.close()
         dt = time.perf_counter() - t0
         logger.info(
             "checkpoint transfer: %.1f MB in %.2fs (%.0f MB/s; "
-            "%d attempt(s), %.1f MB resumed, %d failover(s), "
-            "%d digest mismatch(es))",
+            "%d attempt(s), %d donor(s), %.1f MB resumed, "
+            "%d failover(s), %d digest mismatch(es))",
             session.bytes_read / 1e6, dt,
             session.bytes_read / 1e6 / max(dt, 1e-9), session.rounds,
+            max(len(session.donors_used), 1),
             session.bytes_resumed / 1e6, session.failovers,
             session.digest_mismatches)
         return out
@@ -654,12 +741,19 @@ class CheckpointServer:
                        donors: Optional[Callable[[int], Optional[str]]],
                        max_donor_failovers: int,
                        progress_cb: Optional[Callable[[int, int], None]],
-                       retry_stats: Optional[RetryStats]) -> Any:
+                       retry_stats: Optional[RetryStats],
+                       stripe: Optional[List[str]] = None) -> Any:
+        stripe = stripe if stripe is not None else []
         endpoint = _heal_endpoint(addr)
         attempts = max(int(pol.max_attempts), 1)
         no_progress = 0
         need_manifest = True
         while True:
+            if stripe and addr not in stripe:
+                # The striped wave dropped the manifest donor as dead;
+                # the SAME transfer continues against the survivors.
+                addr = stripe[0]
+                endpoint = _heal_endpoint(addr)
             marker = len(session.committed)
             try:
                 if need_manifest:
@@ -669,18 +763,25 @@ class CheckpointServer:
                     need_manifest = False
                 if not session.complete():
                     session.rounds += 1
-                    for span in session.spans():
-                        cls._fetch_span(addr, session, span, stall,
-                                        auth_token, endpoint, progress_cb)
+                    if len(stripe) > 1:
+                        cls._fetch_striped(session, stripe, stall,
+                                           auth_token, progress_cb)
+                    else:
+                        for span in session.spans():
+                            cls._fetch_span(addr, session, span, stall,
+                                            auth_token, endpoint,
+                                            progress_cb)
                 if session.complete():
                     return session.assemble()
-                # Remaining leaves mismatched their digest (corruption in
-                # transit — bounded per leaf by MAX_LEAF_REFETCHES inside
-                # _fetch_span): transient, the next round re-spans only
-                # what's left.
+                # Remaining leaves either mismatched their digest
+                # (corruption in transit — bounded per leaf by
+                # MAX_LEAF_REFETCHES inside _fetch_span) or rode a
+                # striped donor that died mid-wave: transient either
+                # way, the next round re-spans only what's left.
                 raise LeafDigestError(
                     f"{len(session.missing())} leaves still missing "
-                    "after this round (digest mismatch); re-fetching")
+                    "after this round (digest mismatch or dropped "
+                    "striped donor); re-fetching")
             except Exception as e:  # noqa: BLE001 — classified below
                 transient = transport.classify(e)
                 dead = (isinstance(e, HealCorruptError)
@@ -691,6 +792,28 @@ class CheckpointServer:
                     no_progress = 0
                 else:
                     no_progress += 1
+                if dead and getattr(e, "_heal_striped_handled", False) \
+                        and stripe:
+                    # A striped wave already evicted the donor(s) that
+                    # actually died — `addr` may well be a healthy
+                    # survivor (the exception belongs to ANOTHER donor's
+                    # thread). Re-stripe over the survivors; the loop
+                    # head re-targets if addr was the victim.
+                    no_progress = 0
+                    continue
+                if dead and addr in stripe and len(stripe) > 1:
+                    # A striped peer remains: drop the dead donor and
+                    # reassign its stripe instead of burning a failover
+                    # (the failover resolver stays the LAST resort, for
+                    # when the whole advertised set is gone).
+                    stripe.remove(addr)
+                    with session.lock:
+                        session.stripe_deaths += 1
+                    logger.warning(
+                        "heal: striped donor %s dead (%s); continuing "
+                        "with %d survivor(s)", addr, e, len(stripe))
+                    no_progress = 0
+                    continue
                 if ((dead or no_progress >= attempts)
                         and donors is not None
                         and session.failovers < max_donor_failovers):
@@ -708,6 +831,11 @@ class CheckpointServer:
                         session.failovers += 1
                         addr = nxt
                         endpoint = _heal_endpoint(addr)
+                        # The advertised stripe set is spent — the
+                        # resolver's donor is authoritative now, and a
+                        # stale stripe entry must not re-capture addr at
+                        # the top of the loop.
+                        stripe.clear()
                         need_manifest = True
                         no_progress = 0
                         continue
@@ -806,9 +934,10 @@ class CheckpointServer:
                     _read_exact_into(reader, mv)
                     crc = zlib.crc32(mv)
                     if "crc32" in entry and crc != int(entry["crc32"]):
-                        session.digest_mismatches += 1
-                        n = session.refetches[i] = \
-                            session.refetches.get(i, 0) + 1
+                        with session.lock:
+                            session.digest_mismatches += 1
+                            n = session.refetches[i] = \
+                                session.refetches.get(i, 0) + 1
                         logger.warning(
                             "heal: leaf %r digest mismatch "
                             "(got %08x, manifest %08x; refetch %d/%d)",
@@ -820,7 +949,7 @@ class CheckpointServer:
                                 f"verification {n} times; the donor's "
                                 "copy is corrupt")
                         continue  # stays missing; next round re-spans it
-                    session.commit(i, arr, crc)
+                    session.commit(i, arr, crc, donor=addr)
                     if progress_cb is not None:
                         progress_cb(session.committed_bytes,
                                     session.total_len)
@@ -828,3 +957,67 @@ class CheckpointServer:
                 resp.close()
                 session.note_bytes(counter[0])
             chaos.end(tok)
+
+    @classmethod
+    def _fetch_striped(cls, session: "_HealSession", stripe: List[str],
+                       stall: float, auth_token: Optional[str],
+                       progress_cb: Optional[Callable[[int, int], None]]
+                       ) -> None:
+        """One striped wave: partition the missing leaves into
+        contiguous byte-balanced stripes, one per live donor, and fetch
+        them CONCURRENTLY (one thread per donor; each stripe collapses
+        to a handful of coalesced Range requests). Every leaf verifies
+        against the one adopted manifest regardless of which donor
+        served it.
+
+        Donors whose thread fails DEAD (refused dial, persistently
+        corrupt copy) are removed from ``stripe`` in place, so the next
+        wave re-partitions only the remaining bytes over the survivors.
+        Raises only when NO leaf landed this wave (all donors failed) —
+        a partial wave returns so the caller's progress accounting
+        resets the retry budget and re-stripes the remainder."""
+        groups = session.stripes(len(stripe))
+        before = len(session.committed)
+        failures: List[Tuple[str, BaseException]] = []
+        flock = threading.Lock()
+
+        def fetch(donor: str, idxs: List[int]) -> None:
+            try:
+                for span in session.spans_for(idxs):
+                    cls._fetch_span(donor, session, span, stall,
+                                    auth_token, _heal_endpoint(donor),
+                                    progress_cb)
+            except BaseException as e:  # noqa: BLE001 — classified below
+                with flock:
+                    failures.append((donor, e))
+
+        threads = [
+            threading.Thread(target=fetch, args=(donor, idxs),
+                             name=f"heal-stripe-{k}", daemon=True)
+            for k, (donor, idxs) in enumerate(zip(stripe, groups))
+            if idxs
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        primary_exc: Optional[BaseException] = None
+        for donor, e in failures:
+            if (isinstance(e, HealCorruptError)
+                    or transport.looks_peer_dead(e)) \
+                    and donor in stripe and len(stripe) > 1:
+                stripe.remove(donor)
+                with session.lock:
+                    session.stripe_deaths += 1
+                logger.warning(
+                    "heal: striped donor %s died mid-stripe (%s); its "
+                    "remaining leaves reassign to %d survivor(s)",
+                    donor, e, len(stripe))
+            if primary_exc is None or donor == stripe[0]:
+                primary_exc = e
+        if failures and len(session.committed) == before:
+            # Dead donors were already evicted above — flag that so the
+            # caller's own eviction branch doesn't blame the CURRENT
+            # manifest donor for a different donor's death.
+            primary_exc._heal_striped_handled = True  # noqa: SLF001
+            raise primary_exc  # zero-progress wave: let the caller classify

@@ -32,9 +32,11 @@
 // axis becomes a loop inside the block:
 //   * forward and dq: one block per (bh, q tile), looping over k tiles;
 //   * dk/dv and fused: one block per (bh, k tile), looping over q tiles.
-// The fused kernel's dq is summed across k-tile blocks with f32 atomics
-// into a zeroed [B*H, S, D] f32 buffer the caller allocates (the TPU kernel
-// used an aliased HBM read-modify-write along its sequential grid axis).
+// The fused kernel's dq is summed across k-tile blocks into a zeroed
+// [B*H, S, D] f32 buffer the caller allocates, in a fixed order that a
+// semaphore per (bh, q tile) enforces (the TPU kernel used an aliased HBM
+// read-modify-write along its sequential grid axis): the sum, and so the
+// gradients, are bitwise equal from run to run.
 // The dk/dv kernel is the fused kernel without its dq (one body, two
 // instantiations), so the two give bitwise equal dk and dv.
 //
@@ -114,6 +116,9 @@ constexpr int HQ_HALF = 32;            // q rows per half step of its consumers
 constexpr int NCONSUMERS = 2;          // consumer warpgroups, 64 rows each
 constexpr int HTHREADS = 128 * (1 + NCONSUMERS);
 constexpr int CONSUMER_BAR = 1;        // named barrier of the consumers
+// Named barriers of the fused backward's dq order (consumers + one warp).
+constexpr int DQ_TURN_BAR = 2, DQ_DONE_BAR = 3;
+constexpr int DQ_BAR_THREADS = 128 * NCONSUMERS + 32;
 // Registers a thread after setmaxnreg: the launch gives each of the 384
 // threads 168 (65,536 / 384, rounded down to 8); the producer warpgroup
 // hands 168 - PRODUCER_REGS each to the consumers.
@@ -579,13 +584,33 @@ template <int D, bool WITH_DQ> struct BwdSmem {
 // all 128 keys and 64 q rows, each consumer taking one 64-column atom of D
 // (consumer 0 alone below D = 128), added to the f32 dq buffer by vector
 // atomics.
+//
+// The order of those adds is fixed (FA3's deterministic mode): k tiles add
+// to the dq rows of a q tile from the last k tile down. dq_sem holds one
+// zeroed int per (bh, q tile of 64 rows), the number of k tiles that have
+// added there; the k tiles that visit the q tile at q0 are [0, J) with
+// J = mask.key_tiles<HQ_BWD, HT>(q0) (a k tile's loop starts at
+// first_q_tile, which grows with k0, so the visitors form a prefix), so k
+// tile kt adds once the count reaches J - 1 - kt, then bumps it. A pair the
+// mask skips neither waits nor is waited for. The consumers hold every
+// register they have, so an idle warp of the producer warpgroup keeps the
+// order: per q tile it waits for the turn (ld.acquire), lets the consumers
+// add (DQ_TURN_BAR), waits until they have issued their adds
+// (DQ_DONE_BAR) and bumps the count (red.release, cumulative over the
+// adds the barrier ordered before it). Block x of row y takes k tile
+// gridDim.x - 1 - x: a block waits only for blocks of lower blockIdx.x in
+// its blockIdx.y, which the hardware dispatches before it and which keep
+// their SM until they finish, so the wait cannot deadlock; keep the grid
+// (k tiles, B*H). Under the causal mask the last k tile starts at the
+// highest q tile, so each waits for k tiles that reached its q tile
+// iterations earlier.
 template <int D, bool WITH_DQ>
 __device__ __forceinline__ void bwd_kv_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     const CUtensorMap* tm_do, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, float* __restrict__ dq, int H, int Hkv, int S,
-    int Sk, int offset, float scale) {
+    bf16* __restrict__ dv, float* __restrict__ dq, int* __restrict__ dq_sem,
+    int H, int Hkv, int S, int Sk, int offset, float scale) {
   using T = Tiles<D>;
   using L = BwdSmem<D, WITH_DQ>;
   extern __shared__ unsigned char smem_raw[];
@@ -602,7 +627,8 @@ __device__ __forceinline__ void bwd_kv_body(
   uint64_t* empty = bars + 2;  // [2] stage released
   uint64_t* kvbar = bars + 4;
 
-  const int k0 = blockIdx.x * HT, bh = blockIdx.y;
+  const int kt = WITH_DQ ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int k0 = kt * HT, bh = blockIdx.y;
   const Mask mask{S, Sk, offset};
   const int nqb = (S + HQ_BWD - 1) / HQ_BWD;
   const int qi0 = mask.first_q_tile<HQ_BWD>(k0);
@@ -645,6 +671,24 @@ __device__ __forceinline__ void bwd_kv_body(
           hopper::tma_load_3d(sdO + a * HQ_BWD * T::SW, tm_do, &full[s],
                               a * T::AW, q0, bh);
         }
+      }
+    } else if (WITH_DQ && warp == 2) {
+      // The dq order (see above). A wait far beyond any k tile's work
+      // (2^26 reads, seconds) traps: a broken order fails the launch
+      // instead of hanging the card.
+#pragma unroll 1
+      for (int it = 0; it < nit; ++it) {
+        const int q0 = (qi0 + it) * HQ_BWD;
+        int* sem = dq_sem + bh * nqb + q0 / HQ_BWD;
+        if (lane == 0) {
+          const int turn = mask.key_tiles<HQ_BWD, HT>(q0) - 1 - kt;
+          for (int n = 0; hopper::ld_acquire(sem) != turn; ++n)
+            if (n == 1 << 26) __trap();
+        }
+        __syncwarp();
+        hopper::named_arrive(DQ_TURN_BAR, DQ_BAR_THREADS);
+        hopper::named_barrier(DQ_DONE_BAR, DQ_BAR_THREADS);
+        if (lane == 0) hopper::red_release(sem, 1);
       }
     } else if (warp == 1) {
       // lse / delta rows are S floats apart: no TMA alignment, plain loads.
@@ -808,6 +852,8 @@ __device__ __forceinline__ void bwd_kv_body(
           hopper::wgmma_commit();
         }
         hopper::wgmma_wait<0>();
+        // This k tile's turn at the q tile (the order warp).
+        hopper::named_barrier(DQ_TURN_BAR, DQ_BAR_THREADS);
         if (does_dq) {
           hopper::fence_regs<T::AW / 2>(qacc);
 #pragma unroll
@@ -822,6 +868,10 @@ __device__ __forceinline__ void bwd_kv_body(
                                     qacc[4 * j + 2 * i + 1] * scale));
           }
         }
+        // This k tile's adds are issued: the order warp's release, which
+        // the barrier orders after them (CUTLASS's arrive_inc), passes the
+        // turn on.
+        hopper::named_arrive(DQ_DONE_BAR, DQ_BAR_THREADS);
       }
     }
 
@@ -853,10 +903,11 @@ flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, float* __restrict__ dq, int H,
-                      int Hkv, int S, int Sk, int offset, float scale) {
+                      bf16* __restrict__ dv, float* __restrict__ dq,
+                      int* __restrict__ dq_sem, int H, int Hkv, int S, int Sk,
+                      int offset, float scale) {
   bwd_kv_body<D, true>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, dq,
-                       H, Hkv, S, Sk, offset, scale);
+                       dq_sem, H, Hkv, S, Sk, offset, scale);
 }
 
 // ----------------------------------------------------- backward dk/dv
@@ -874,7 +925,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      bf16* __restrict__ dv, int H, int Hkv, int S, int Sk,
                      int offset, float scale) {
   bwd_kv_body<D, false>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv,
-                        nullptr, H, Hkv, S, Sk, offset, scale);
+                        nullptr, nullptr, H, Hkv, S, Sk, offset, scale);
 }
 
 // The kernels' mask: the diagonal offset of the end-aligned causal mask
@@ -976,9 +1027,9 @@ cudaError_t launch_kv(const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t launch_fused(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
-                         void* dk, void* dv, void* dq, int BH, int H, int Hkv,
-                         int S, int Sk, int causal, int shift, float scale,
-                         cudaStream_t st) {
+                         void* dk, void* dv, void* dq, void* dq_sem, int BH,
+                         int H, int Hkv, int S, int Sk, int causal, int shift,
+                         float scale, cudaStream_t st) {
   constexpr int smem = BwdSmem<D, true>::TOTAL;
   cudaError_t e = prepare(flash_bwd_fused_wgmma<D>, smem);
   if (e != cudaSuccess) return e;
@@ -988,7 +1039,7 @@ cudaError_t launch_fused(const void* q, const void* k, const void* v,
   dim3 grid((Sk + HT - 1) / HT, BH);
   flash_bwd_fused_wgmma<D><<<grid, HTHREADS, smem, st>>>(
       m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta,
-      (bf16*)dk, (bf16*)dv, (float*)dq, H, Hkv, S, Sk,
+      (bf16*)dk, (bf16*)dv, (float*)dq, (int*)dq_sem, H, Hkv, S, Sk,
       mask_offset(S, Sk, causal, shift), scale);
   return cudaGetLastError();
 }
@@ -1032,14 +1083,16 @@ int tft_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                        scale, (cudaStream_t)stream))
 }
 
+// dq_sem: BH * ceil(S / 64) zeroed ints, the fixed order's semaphores.
 int tft_flash_bwd_fused(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
-                        void* dk, void* dv, void* dq, int BH, int H, int Hkv,
-                        int S, int Sk, int D, int causal, int shift,
-                        float scale, void* stream) {
+                        void* dk, void* dv, void* dq, void* dq_sem, int BH,
+                        int H, int Hkv, int S, int Sk, int D, int causal,
+                        int shift, float scale, void* stream) {
   TFT_DISPATCH_D(D, (int)launch_fused<DD>(q, k, v, dout, lse, delta, dk,
-                                          dv, dq, BH, H, Hkv, S, Sk, causal,
-                                          shift, scale, (cudaStream_t)stream))
+                                          dv, dq, dq_sem, BH, H, Hkv, S, Sk,
+                                          causal, shift, scale,
+                                          (cudaStream_t)stream))
 }
 
 const char* tft_error_string(int code) {

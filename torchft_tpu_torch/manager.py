@@ -1,5 +1,5 @@
-"""Per-step fault-tolerance state machine (sub-slices (a), (b) and (c) of
-the JAX package's ``torchft_tpu/manager.py``).
+"""Per-step fault-tolerance state machine (sub-slices (a), (b), (c) and
+(d1) of the JAX package's ``torchft_tpu/manager.py``).
 
 Every training step the Manager (1) joins the global quorum, overlapped
 with the forward pass, (2) reconfigures the cross-group communicator when
@@ -25,10 +25,19 @@ fields a healer adopts, the accessors and ``shutdown``; the sharded
 update's exchange — ``reduce_scatter`` (:2573) into a
 :class:`ShardedGrads`, ``allgather_shards`` (:2727) and ``record_update``
 (:2758) — and the cross-step overlap engine's deferred commit
-(``stage_deferred`` .. ``note_deferred_dropped``, :2830-2905). State
-digests, the policy controller, rebalancing, degraded mode, the RAM tier,
-publication, preemption drains and striped heals are later sub-slices;
-their constructor arguments are not accepted.
+(``stage_deferred`` .. ``note_deferred_dropped``, :2830-2905); and the
+recovery plane the JAX Manager runs by default: the striped heal across
+every live donor (``heal_striped``, healset advertisements on the quorum
+store, :1873-1952), the per-boundary fleet digest that rides the quorum
+RPC and the fleet hint it echoes (``fleet_telemetry``, ``_push_digest``
+:4042, ``_consume_fleet_hint`` :1525), and state attestation
+(``attestation``): each commit boundary fingerprints the committed state
+on the card (``ops.attest``, 16 bytes to the host), the lighthouse
+majority-votes the fingerprints, and a group that loses the vote is
+quarantined and re-heals from the attested majority (:1594-1782). The
+policy controller, rebalancing, degraded mode, the RAM tier, publication
+and preemption drains are later sub-slices; their constructor arguments
+are not accepted.
 
 The device side of the allreduce is torch, on the gradients' device (a
 CUDA card, or the CPU in tests): each bucket's gradient leaves are packed
@@ -45,6 +54,7 @@ the same ring — agrees on the geometry.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import socket
@@ -52,6 +62,8 @@ import sys
 import threading
 import time
 import uuid
+import zlib
+from collections import OrderedDict, deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import (Any, Callable, Dict, Iterator, List, Optional, TypeVar,
                     cast)
@@ -59,11 +71,14 @@ from typing import (Any, Callable, Dict, Iterator, List, Optional, TypeVar,
 import numpy as np
 import torch
 
+from torchft_tpu_torch import chaos as chaos_mod
 from torchft_tpu_torch import policy as policy_mod
+from torchft_tpu_torch import serialization
 from torchft_tpu_torch import tracing as tracing_mod
 from torchft_tpu_torch._native import (ManagerClient, ManagerServer, Store,
                                        StoreClient)
 from torchft_tpu_torch.checkpointing import CheckpointServer
+from torchft_tpu_torch.ops import attest as attest_ops
 from torchft_tpu_torch.communicator import (BF16, INT8_SEG_ELEMS,
                                             Communicator, CommunicatorError,
                                             Int8Wire, dtype_name, host_dtype,
@@ -78,6 +93,9 @@ MANAGER_ADDR_KEY: str = "manager/addr"
 # Consecutive failed quorum rounds before step() raises instead of spinning.
 _MAX_CONSECUTIVE_FAILURES = 20
 _MAX_DONOR_FAILOVERS = 3
+# How long a healer re-reads a donor's advertisement that is behind the
+# heal's max_step before dropping it (_healset_scrape).
+_HEALSET_CATCH_UP_SEC = 2.0
 T = TypeVar("T")
 
 
@@ -135,6 +153,29 @@ class Manager:
             int8 + error feedback); it wins over
             ``allreduce_wire_dtype``, rides :meth:`state_dict`, and a
             healer adopts the donor's. DiLoCo policies are not ported.
+        heal_striped: stripe a heal across ALL live donors at once (env
+            ``TORCHFT_HEAL_STRIPED``, default on): participants advertise
+            their checkpoint address under a per-rank store key each
+            quorum round, and a healer fetches disjoint byte-balanced
+            leaf ranges from every donor at the healed step, in a
+            per-healer seed-shuffled order. A dead donor only reassigns
+            its remaining stripe. Falls back to the single-donor fetch
+            when fewer than two donors are advertised.
+        fleet_telemetry: push a per-step digest (step wall, tracer stage
+            split, heal activity) to the manager server once per commit
+            boundary, riding the quorum RPC; the lighthouse echoes a
+            fleet hint (fleet p95, straggler score, SLO breaches) in
+            every quorum response (env ``TORCHFT_FLEET_TELEMETRY``,
+            default on).
+        attestation: each commit boundary's digest also carries a
+            fingerprint of the committed state, computed on the card
+            (env ``TORCHFT_ATTESTATION``, default on; rides the fleet
+            digest, so it needs ``fleet_telemetry``). The lighthouse
+            majority-votes the fingerprints; a group that loses the vote
+            is quarantined — out of the fold, its advertisements
+            withdrawn, its checkpoint server answering 503 — and
+            re-heals from the attested majority until the lighthouse
+            clears it.
         auth_token: shared job secret (env ``TORCHFT_AUTH_TOKEN``) for the
             checkpoint server and Kill RPCs.
         checkpoint_bind_host: interface of the checkpoint server (env
@@ -163,6 +204,9 @@ class Manager:
         shard_update: bool = False,
         device_quantize: Optional[bool] = None,
         policy: Optional[policy_mod.FTPolicy] = None,
+        heal_striped: Optional[bool] = None,
+        fleet_telemetry: Optional[bool] = None,
+        attestation: Optional[bool] = None,
         auth_token: Optional[str] = None,
         checkpoint_bind_host: Optional[str] = None,
         _manager_client: Optional[ManagerClient] = None,
@@ -208,6 +252,43 @@ class Manager:
                 "TORCHFT_DEVICE_QUANT", "1").strip().lower() \
                 not in ("0", "false")
         self._device_quant = bool(device_quantize)
+        self._heal_striped = _env_flag(heal_striped, "TORCHFT_HEAL_STRIPED")
+        self._fleet_telemetry = _env_flag(fleet_telemetry,
+                                          "TORCHFT_FLEET_TELEMETRY")
+        self._attestation = _env_flag(attestation, "TORCHFT_ATTESTATION")
+        # Previous-boundary snapshot the digest's deltas derive from;
+        # None before the first boundary.
+        self._digest_prev: Optional[Dict[str, float]] = None
+        # The fleet hint's slowest-stage attribution of this group.
+        self._fleet_stage = ""
+        # (slo, step) pairs already counted: the hint repeats ACTIVE
+        # breaches every round.
+        self._slo_seen: "OrderedDict[tuple, None]" = OrderedDict()
+        # Cached StoreClient of the quorum's store, keyed by address (the
+        # healset advertisements ride it); a test may inject (addr, store).
+        self._healset_store: Optional[tuple] = None
+        # (store address, replica rank, max world) of the last quorum
+        # round: what the advertisement withdrawal needs later.
+        self._last_round_facts: Optional[tuple] = None
+        # The last fingerprint pushed, and the sticky quarantine latch:
+        # once the fleet says WE diverged it holds — out of the fold,
+        # withdrawn advertisements, re-heal from the attested majority —
+        # until a later hint confirms the re-attested digest matched.
+        self._last_state_digest = ""
+        self._sdc_quarantined = False
+        # The step of the last quarantine re-heal (None before any).
+        self._sdc_reheal_step: Optional[int] = None
+        # Fleet-wide quarantine facts from the hint: replica ids under a
+        # verdict and their checkpoint-server bases, which the one donor
+        # predicate (_donor_admissible) excludes from every heal.
+        self._sdc_quarantined_peers: set = set()
+        self._sdc_quarantined_bases: set = set()
+        # Recent membership / heal / abort / quarantine events, served in
+        # the status at the manager's GET /metrics.json.
+        self._history: deque = deque(maxlen=max(int(os.environ.get(
+            "TORCHFT_EVENT_HISTORY", 64)), 1))
+        self._event_seq = 0
+        self._flight: Optional[tracing_mod.FlightRecorder] = None
         self._user_load_state_dict = load_state_dict
         self._user_state_dict = state_dict
         self._min_replica_size = min_replica_size
@@ -256,6 +337,21 @@ class Manager:
             "reduce_scatter_count": 0, "update_count": 0,
             "update_ms_total": 0.0, "shard_state_bytes": 0.0,
             "shard_state_resets": 0,
+            # Donors the last heal fetched from (1 = single donor).
+            "heal_striped_donors": 0.0,
+            # The fleet hint, refreshed every quorum round.
+            "fleet_p95_ms": 0.0, "straggler_score": 0.0,
+            "fleet_groups": 0.0, "slo_breach": 0.0,
+            "slo_breaches_total": 0.0,
+            # State attestation: fingerprints and their wall; this
+            # group's verdict (gauge), its quarantines, clears and
+            # re-heals; chaos bit flips applied; and the JAX Manager's
+            # refusals of save, publish and RAM replication under a
+            # verdict, 0 until those paths are ported.
+            "sdc_digests_total": 0.0, "sdc_digest_ms_total": 0.0,
+            "sdc_quarantined": 0.0, "sdc_quarantines_total": 0.0,
+            "sdc_quarantine_clears_total": 0.0, "sdc_reheals_total": 0.0,
+            "sdc_refusals_total": 0.0, "sdc_chaos_flips_total": 0.0,
         }
         self._metrics_lock = threading.Lock()
         self._retry_policy = RetryPolicy()
@@ -334,13 +430,27 @@ class Manager:
         self._init_observability()
 
     def _init_observability(self) -> None:
+        """Once the replica id exists: stamp the tracer's context, create
+        the flight recorder (``TORCHFT_FLIGHT_DIR``) and attach the
+        trace/metrics endpoints to the checkpoint server."""
         self._tracer.set_context(replica_id=self._replica_id,
                                  step=self._step,
                                  policy_name=self._policy.name)
+        self._flight = tracing_mod.FlightRecorder(
+            self._tracer, replica_id=self._replica_id,
+            metrics_fn=self.metrics, info_fn=self.metrics_info,
+            history_fn=self.history)
         attach = getattr(self._ckpt_server, "attach_observability", None)
         if attach is not None:
             attach(tracer=self._tracer, metrics_fn=self.metrics,
+                   info_fn=self.metrics_info,
                    labels={"replica_id": self._replica_id})
+
+    def _flight_dump(self, reason: str, **extra: Any) -> None:
+        """A flight-recorder dump (no-op without ``TORCHFT_FLIGHT_DIR``;
+        never raises)."""
+        if self._flight is not None:
+            self._flight.dump(reason, extra=extra or None)
 
     # ------------------------------------------------------------------ step
 
@@ -363,6 +473,9 @@ class Manager:
                 "consecutive quorum rounds failed; refusing to spin")
         if streak > 0:
             time.sleep(min(0.05 * streak, 1.0))
+        # Chaos sdc band: a post-commit bit flip at this boundary trains
+        # this step and loses the attestation vote at the next boundary.
+        self._maybe_chaos_sdc()
         if self._should_step:
             with self._metrics_lock:
                 self._step += 1
@@ -405,6 +518,11 @@ class Manager:
                 f"{q.replica_world_size}); treating as a failed round")
         self._tracer.set_context(quorum_id=q.quorum_id)
         logger.debug("%s quorum at step %d: %s", self._replica_id, self._step, q)
+        # The lighthouse's fleet hint and attestation verdict for THIS
+        # group, echoed on every round.
+        self._consume_fleet_hint(q)
+        self._last_round_facts = (getattr(q, "store_address", "") or "",
+                                  q.replica_rank, q.max_world_size)
 
         with self._metrics_lock:
             # Healers are not at max_step: they sit this step out
@@ -441,8 +559,34 @@ class Manager:
             self._comm_poisoned = False
             self._record(reconfigure_count=1, reconfigure_ms_total=(
                 time.perf_counter() - reconf_t0) * 1e3)
+            self._log_event(event="reconfigure", step=self._step,
+                            quorum_id=q.quorum_id, rank=q.replica_rank,
+                            world=q.replica_world_size, recovery=recovery)
 
         if not q.heal:
+            with self._metrics_lock:
+                quarantined = self._sdc_quarantined
+            if quarantined:
+                # Divergence verdict latched: the lighthouse still has us
+                # at max_step (corruption does not lag a step counter),
+                # so no heal was assigned — force one anyway, and do not
+                # advertise as a donor: our bytes lost the vote.
+                if self._sdc_reheal_step == self._step - 1:
+                    # Re-healed at the last boundary: this round's verdict
+                    # can predate the re-attested digest (the lighthouse
+                    # answers from an aggregate cached for up to 200 ms),
+                    # so sit this round out of the fold instead of
+                    # healing again; a verdict that holds next round
+                    # re-heals then. The JAX Manager heals again at once.
+                    logger.info("%s: re-healed at step %d; waiting a "
+                                "round for the re-attested verdict",
+                                self._replica_id, self._sdc_reheal_step)
+                    return
+                self._sdc_reheal(q)
+                return
+            # Advertise this participant's checkpoint server so healers
+            # can stripe a fetch across every live donor.
+            self._publish_healset(q)
             return
         # Lagging (or a fresh non-primary at step 1): fetch the primary's
         # live state.
@@ -462,6 +606,8 @@ class Manager:
             with self._metrics_lock:
                 self._metrics["heal_last_bytes_committed"] = 0.0
                 self._metrics["heal_last_payload_bytes"] = 0.0
+            donor_addrs = (self._healset_donors(q, ckpt_addr)
+                           if self._heal_striped else None)
             state = cast(Dict[str, Any], CheckpointServer.load_from_address(
                 ckpt_addr, self._manager_state_dict(), stats=heal_stats,
                 auth_token=self._auth_token,
@@ -470,10 +616,15 @@ class Manager:
                 stall_timeout_sec=self._heal_stall_timeout_sec,
                 donors=lambda i: self._resolve_next_donor(i, q),
                 max_donor_failovers=_MAX_DONOR_FAILOVERS,
+                donor_addrs=donor_addrs,
+                stripe_seed=_stripe_seed(self._replica_id),
                 progress_cb=self._heal_progress, tracer=self._tracer))
         finally:
-            heal_span.set(bytes=heal_stats.get("bytes", 0.0)).__exit__(
-                *sys.exc_info())
+            heal_span.set(
+                bytes=heal_stats.get("bytes", 0.0),
+                donors=heal_stats.get("donors_used", 1.0),
+                failovers=heal_stats.get("donor_failovers", 0.0),
+            ).__exit__(*sys.exc_info())
             heal_ms = (time.perf_counter() - heal_t0) * 1e3
             self._record(
                 heal_ms_total=heal_ms,
@@ -481,18 +632,227 @@ class Manager:
                 heal_bytes_resumed_total=heal_stats.get("bytes_resumed", 0.0),
                 heal_donor_failovers=heal_stats.get("donor_failovers", 0.0),
                 heal_attempts_total=heal_stats.get("attempts", 0.0))
+            with self._metrics_lock:  # a gauge, not a counter
+                self._metrics["heal_striped_donors"] = heal_stats.get(
+                    "donors_used", 1.0)
+            self._log_event(
+                event="heal", step=self._step,
+                source=q.recover_manager_address, ms=round(heal_ms, 1),
+                bytes=heal_stats.get("bytes", 0.0),
+                resumed=heal_stats.get("bytes_resumed", 0.0),
+                attempts=heal_stats.get("attempts", 0.0),
+                failovers=heal_stats.get("donor_failovers", 0.0),
+                donors_used=heal_stats.get("donors_used", 1.0))
         # Manager metadata restores now, on this thread; the user state is
         # staged and applied on the main thread at commit.
         self.load_state_dict(state["torchft"])
         self._pending_state_dict = state
 
+    def _consume_fleet_hint(self, q: Any) -> None:
+        """The lighthouse's fleet health hint from one quorum response:
+        gauges (``fleet_p95_ms``, ``straggler_score``, ``fleet_groups``,
+        ``slo_breach``) refresh every round; a breach names THIS group,
+        counted, logged and flight-dumped once per (slo, step). Then the
+        attestation half (:meth:`_consume_sdc_verdict`). The JAX hint's
+        rebalance table belongs to a later sub-slice and is not read.
+        Type guards everywhere: a hint-less (mocked) client reads as
+        zeros, never poisons the numeric metrics."""
+        def _num(name: str) -> float:
+            v = getattr(q, name, 0.0)
+            return (float(v) if isinstance(v, (int, float))
+                    and not isinstance(v, bool) else 0.0)
+
+        def _s(name: str) -> str:
+            v = getattr(q, name, "")
+            return v if isinstance(v, str) else ""
+
+        breaches = [b.strip() for b in _s("slo_breach").split(",")
+                    if b.strip()]
+        score = _num("straggler_score")
+        with self._metrics_lock:
+            self._metrics["fleet_groups"] = _num("fleet_groups")
+            self._metrics["fleet_p95_ms"] = _num("fleet_p95_ms")
+            self._metrics["straggler_score"] = score
+            self._metrics["slo_breach"] = 1.0 if breaches else 0.0
+            fresh = [b for b in breaches
+                     if (b, self._step) not in self._slo_seen]
+            for b in fresh:
+                self._slo_seen[(b, self._step)] = None
+            while len(self._slo_seen) > 1024:  # bounded dedup memory
+                self._slo_seen.popitem(last=False)
+            self._metrics["slo_breaches_total"] += len(fresh)
+            self._fleet_stage = _s("straggler_stage")
+        self._consume_sdc_verdict(q)
+        if not fresh:
+            return
+        self._log_event(event="slo_breach", step=self._step,
+                        slos=",".join(fresh),
+                        straggler_score=round(score, 3),
+                        stage=self._fleet_stage)
+        for slo in fresh:
+            self._flight_dump(f"slo_breach_{slo}", slo=slo,
+                              straggler_score=round(score, 4),
+                              stage=self._fleet_stage,
+                              fleet_p95_ms=_num("fleet_p95_ms"))
+
+    def _consume_sdc_verdict(self, q: Any) -> None:
+        """The attestation half of the hint: the fleet-wide quarantine
+        lists refresh every round (they gate every donor resolver via
+        :meth:`_donor_admissible`), and this group's verdict drives its
+        latch. The verdict is tri-state: True latches, False clears a
+        held latch (the lighthouse saw the re-attested digest match), a
+        missing or non-bool field does nothing — a control plane without
+        attestation must not read as an all-clear."""
+        sd = getattr(q, "sdc_diverged", None)
+        rids = getattr(q, "sdc_quarantined", None)
+        addrs = getattr(q, "sdc_quarantined_addrs", None)
+        with self._metrics_lock:
+            if isinstance(rids, str):
+                self._sdc_quarantined_peers = {
+                    r.strip() for r in rids.split(",") if r.strip()}
+            if isinstance(addrs, str):
+                self._sdc_quarantined_bases = {
+                    _addr_base(a.strip()) for a in addrs.split(",")
+                    if a.strip()}
+            latched = self._sdc_quarantined
+            healing = self._healing
+        if not isinstance(sd, bool):
+            return
+        if sd and not latched:
+            self._enter_sdc_quarantine()
+        elif not sd and latched and not healing:
+            # Cleared only once the re-attested digest matched AND the
+            # recovery heal is no longer in flight (a mid-heal all-clear
+            # would re-admit us with the restore unapplied).
+            with self._metrics_lock:
+                self._sdc_quarantined = False
+                self._metrics["sdc_quarantined"] = 0.0
+            self._record(sdc_quarantine_clears_total=1)
+            self._ckpt_server.set_quarantined(False)
+            self._log_event(event="sdc_quarantine_clear", step=self._step,
+                            digest=self._last_state_digest)
+            logger.info("%s: divergence verdict cleared at step %d — "
+                        "re-attested digest matched the fleet majority",
+                        self._replica_id, self._step)
+
+    def _enter_sdc_quarantine(self) -> None:
+        """Latch the quarantine on a fresh divergence verdict: out of the
+        fold (:meth:`is_participating` is False), advertisements
+        withdrawn, the checkpoint server refusing with 503, one
+        ``sdc_divergence`` flight dump naming the digest the fleet voted
+        against."""
+        with self._metrics_lock:
+            self._sdc_quarantined = True
+            self._metrics["sdc_quarantined"] = 1.0
+        self._record(sdc_quarantines_total=1)
+        self._withdraw_advertisements()
+        self._ckpt_server.set_quarantined(True)
+        self._log_event(event="sdc_divergence", step=self._step,
+                        digest=self._last_state_digest)
+        self._flight_dump("sdc_divergence", digest=self._last_state_digest)
+        logger.error(
+            "%s: DIVERGENCE VERDICT at step %d — this group's state "
+            "digest %s lost the fleet majority vote; quarantining and "
+            "re-healing from the attested majority", self._replica_id,
+            self._step, self._last_state_digest or "<none>")
+
+    def _sdc_reheal(self, q: Any) -> None:
+        """Quarantine recovery: heal even though the quorum assigned none
+        (a corrupt group is still at max_step — only its BYTES are
+        wrong), from the healset advertisements that pass
+        :meth:`_donor_admissible`, striped when there are several. No
+        admissible donor: stay latched and out of the fold, and try
+        again next round — healing from nothing beats healing from
+        divergent bytes."""
+        with self._metrics_lock:
+            self._healing = True
+        self._record(sdc_reheals_total=1)
+        donors: list = []
+        try:
+            donors = self._healset_scrape(q)
+        except Exception:  # noqa: BLE001 — the scrape is best-effort
+            logger.debug("sdc reheal donor scrape failed", exc_info=True)
+        if not donors and getattr(q, "recover_manager_address", ""):
+            try:
+                donors = [self._resolve_checkpoint_addr(
+                    q.recover_manager_address)]
+            except Exception:  # noqa: BLE001 — quarantined/unreachable
+                logger.debug("sdc reheal primary resolve failed",
+                             exc_info=True)
+        if not donors:
+            logger.warning(
+                "%s: no attested donor for quarantine recovery at step "
+                "%d — staying out of the fold, retrying next boundary",
+                self._replica_id, self._step)
+            return
+        self._record(heal_count=1)
+        heal_t0 = time.perf_counter()
+        heal_stats: Dict[str, float] = {}
+        logger.info("%s: quarantine recovery healing from %d attested "
+                    "donor(s) at step %d", self._replica_id, len(donors),
+                    self._step)
+        with self._tracer.span("sdc_reheal", donors=len(donors),
+                               max_step=q.max_step):
+            state = cast(Dict[str, Any], CheckpointServer.load_from_address(
+                donors[0], self._manager_state_dict(), stats=heal_stats,
+                auth_token=self._auth_token,
+                retry_policy=self._retry_policy,
+                retry_stats=self._retry_stats,
+                stall_timeout_sec=self._heal_stall_timeout_sec,
+                donors=lambda i: None, max_donor_failovers=0,
+                donor_addrs=donors if len(donors) > 1 else None,
+                stripe_seed=_stripe_seed(self._replica_id),
+                progress_cb=self._heal_progress, tracer=self._tracer))
+        heal_ms = (time.perf_counter() - heal_t0) * 1e3
+        self._record(heal_ms_total=heal_ms,
+                     heal_bytes_total=heal_stats.get("bytes", 0.0))
+        with self._metrics_lock:
+            # The gauge names this heal's donors too (the JAX re-heal
+            # leaves it at the previous heal's).
+            self._metrics["heal_striped_donors"] = heal_stats.get(
+                "donors_used", 1.0)
+        self._log_event(event="sdc_reheal", step=self._step,
+                        donors=len(donors), ms=round(heal_ms, 1),
+                        bytes=heal_stats.get("bytes", 0.0))
+        # As the in-quorum heal: manager metadata restores here, the user
+        # state applies on the main thread at the commit boundary.
+        self.load_state_dict(state["torchft"])
+        self._pending_state_dict = state
+        self._sdc_reheal_step = self._step
+
     def _resolve_checkpoint_addr(self, manager_addr: str) -> str:
-        """A peer manager's checkpoint-server URL for this rank."""
-        return ManagerClient(
+        """A peer manager's checkpoint-server URL for this rank — the one
+        spelling shared by the heal and the donor failover. Raises when
+        the donor is SDC-quarantined: a divergence-verdicted group is no
+        donor at all (:meth:`_donor_admissible`)."""
+        addr = ManagerClient(
             manager_addr, connect_timeout_ms=self._timeout_ms,
             retry_policy=self._retry_policy,
             retry_stats=self._retry_stats,
         ).checkpoint_address(self._rank, timeout_ms=self._timeout_ms)
+        if not self._donor_admissible(addr):
+            raise RuntimeError(
+                f"{self._replica_id}: resolved donor {addr} is "
+                "SDC-quarantined (divergence verdict) — refusing to heal "
+                "from unattested state")
+        return addr
+
+    def _donor_admissible(self, addr: str, step_s: Optional[str] = None,
+                          max_step: Optional[int] = None) -> bool:
+        """The one admission predicate every donor resolver shares: the
+        address is non-empty, its advertisement (when given) is neither
+        the ``-1`` withdrawal tombstone nor a stale step, and its server
+        base is not on the lighthouse's SDC quarantine list."""
+        if not addr:
+            return False
+        if step_s is not None:
+            if not step_s or step_s == "-1":
+                return False  # withdrawn (tombstoned) advertisement
+            if max_step is not None and step_s != str(max_step):
+                return False  # stale advertisement from an older step
+        with self._metrics_lock:
+            quarantined = _addr_base(addr) in self._sdc_quarantined_bases
+        return not quarantined
 
     def _resolve_next_donor(self, failover_idx: int, q: Any
                             ) -> Optional[str]:
@@ -509,10 +869,17 @@ class Manager:
                                "max_step %d->%d)", self._replica_id,
                                q2.heal, q.max_step, q2.max_step)
                 return None
+            ckpt_addr = self._resolve_checkpoint_addr(
+                q2.recover_manager_address)
+            self._log_event(event="heal_failover", step=self._step,
+                            n=failover_idx + 1,
+                            donor=q2.recover_manager_address)
+            self._flight_dump("heal_failover", n=failover_idx + 1,
+                              donor=q2.recover_manager_address)
             logger.info("%s: heal failing over to donor %s (#%d)",
                         self._replica_id, q2.recover_manager_address,
                         failover_idx + 1)
-            return self._resolve_checkpoint_addr(q2.recover_manager_address)
+            return ckpt_addr
         except Exception:  # noqa: BLE001 — resolver failure ends the heal
             logger.exception("%s: donor re-resolution failed",
                              self._replica_id)
@@ -528,6 +895,118 @@ class Manager:
         with self._metrics_lock:
             self._metrics["heal_last_bytes_committed"] = float(committed)
             self._metrics["heal_last_payload_bytes"] = float(payload)
+
+    # ------------------------------------------------- striped-heal donors
+
+    def _store_client(self, addr: str) -> Optional[Any]:
+        """StoreClient of the quorum's shared store (the one the ring
+        rendezvous rides), cached per address."""
+        if not addr:
+            return None
+        if self._healset_store is not None \
+                and self._healset_store[0] == addr:
+            return self._healset_store[1]
+        client = StoreClient(addr, connect_timeout_ms=self._timeout_ms,
+                             retry_policy=self._retry_policy,
+                             retry_stats=self._retry_stats)
+        self._healset_store = (addr, client)
+        return client
+
+    def _healset_client(self, q: Any) -> Optional[Any]:
+        return self._store_client(q.store_address)
+
+    def _publish_healset(self, q: Any) -> None:
+        """Advertise this participant's checkpoint address under the
+        fixed per-rank key ``torchft/healset/{replica_rank}`` of the
+        quorum store, value ``"{max_step}:{addr}"``. Healers discard an
+        advertisement whose step is not the one they heal to. The key is
+        fixed per rank: the store has no delete, so a per-step key would
+        leak one entry per participant per step. Best-effort."""
+        if not self._heal_striped or q.replica_world_size <= 1:
+            return
+        try:
+            store = self._healset_client(q)
+            if store is None:
+                return
+            store.set(f"torchft/healset/{q.replica_rank}",
+                      f"{q.max_step}:{self._ckpt_server.address()}"
+                      .encode())
+        except Exception:  # noqa: BLE001 — advertisement is best-effort
+            logger.debug("healset publication failed", exc_info=True)
+
+    def _healset_donors(self, q: Any, primary_addr: str
+                        ) -> Optional[list]:
+        """The live donor set of a striped heal: the quorum's primary
+        plus every peer whose advertisement carries this heal's
+        ``max_step`` and passes :meth:`_donor_admissible`. None (the
+        single-donor fetch) when fewer than two distinct donors
+        emerge."""
+        addrs = [primary_addr]
+        try:
+            if self._healset_client(q) is None:
+                return None
+            for a in self._healset_scrape(q):
+                if a not in addrs:
+                    addrs.append(a)
+        except Exception:  # noqa: BLE001 — resolution is best-effort
+            logger.debug("healset donor listing failed", exc_info=True)
+            return None
+        if len(addrs) < 2:
+            return None
+        logger.info("%s: striping heal across %d donors",
+                    self._replica_id, len(addrs))
+        return addrs
+
+    def _healset_scrape(self, q: Any) -> list:
+        """The admissible advertised donors of this round, in rank order,
+        our own rank left out. Donors re-publish right after the same
+        quorum response the healer acts on, so an advertisement behind
+        ``max_step`` is read again for up to
+        :data:`_HEALSET_CATCH_UP_SEC` before it counts as stale (the JAX
+        Manager drops it at once, and on an asynchronous fleet it then
+        loses the donor that was about to advertise about as often as
+        not); a missing key or a tombstone is skipped at once."""
+        store = self._healset_client(q)
+        if store is None:
+            return []
+        deadline = time.monotonic() + _HEALSET_CATCH_UP_SEC
+        out: list = []
+        for r in range(q.max_world_size):
+            if r == q.replica_rank:
+                continue  # our own (absent or tombstoned) advertisement
+            while True:
+                try:
+                    v = store.get(f"torchft/healset/{r}",
+                                  timeout_ms=200).decode()
+                except Exception:  # noqa: BLE001 — absent rank key
+                    v = ""
+                step_s, _, a = v.partition(":")
+                if (step_s.isdigit() and int(step_s) < q.max_step
+                        and time.monotonic() < deadline):
+                    time.sleep(0.02)  # the donor's publish is due
+                    continue
+                break
+            if (self._donor_admissible(a, step_s=step_s,
+                                       max_step=q.max_step)
+                    and a not in out):
+                out.append(a)
+        return out
+
+    def _withdraw_advertisements(self) -> None:
+        """Withdraw this group's heal advertisement: tombstone its
+        healset key (step ``-1`` never matches a heal's ``max_step``) and
+        shut the heal serve window. The JAX Manager also detaches its
+        publication store and RAM tier here; those modules are not
+        ported yet."""
+        facts = self._last_round_facts
+        if facts is not None and self._heal_striped:
+            try:
+                store = self._store_client(facts[0])
+                if store is not None:
+                    store.set(f"torchft/healset/{facts[1]}", b"-1:")
+            except Exception:  # noqa: BLE001 — withdrawal is best-effort
+                logger.debug("healset withdrawal failed", exc_info=True)
+        self._ckpt_server.disallow_checkpoint()
 
     # ------------------------------------------------------------- allreduce
 
@@ -1145,6 +1624,12 @@ class Manager:
         logger.info("%s step=%d should_commit=%s (local=%s enough=%s "
                     "errored=%s)", self._replica_id, self._step, decision,
                     local_ok, enough, self._errored)
+        if not decision:
+            error = repr(self._errored) if self._errored else None
+            self._log_event(event="abort", step=self._step,
+                            local_ok=local_ok, error=error)
+            self._flight_dump("vote_abort", local_ok=local_ok, error=error)
+        self._publish_status()
         # Shut the heal window before the caller mutates state.
         self._ckpt_server.disallow_checkpoint()
         self._should_step = decision
@@ -1156,10 +1641,16 @@ class Manager:
         """Latch a step-local error; the step abstains from committing. A
         :class:`CommunicatorError` also poisons the communicator, so the
         next quorum round rebuilds the ring."""
+        latched_comm = (isinstance(e, CommunicatorError)
+                        and not self._comm_poisoned)
         if isinstance(e, CommunicatorError):
             self._comm_poisoned = True
         if self._errored is None:
             self._errored = e
+        if latched_comm:
+            # The ring just died: the dump's spans show which collective,
+            # bucket and step the reset landed in.
+            self._flight_dump("comm_error", error=repr(e))
 
     def errored(self) -> Optional[Exception]:
         return self._errored
@@ -1181,7 +1672,191 @@ class Manager:
         out["allreduce_ring_fold_ms_total"] = float(split.get("fold", 0.0))
         out["allreduce_ring_transfer_ms_total"] = float(
             split.get("transfer", 0.0))
+        out.update(self._flight.metrics() if self._flight is not None
+                   else {"flight_dumps_total": 0.0})
         return out
+
+    def metrics_info(self) -> Dict[str, str]:
+        """String diagnostics, split from the numeric :meth:`metrics` at
+        the source (the Prometheus exposition renders them as one
+        ``torchft_info`` label set): the policy in force, the newest
+        flight dump, the ring's topology and the fleet hint's
+        slowest-stage attribution of this group."""
+        topo_fn = getattr(self._comm, "ring_topology", None)
+        topo = topo_fn() if callable(topo_fn) else "flat"
+        with self._metrics_lock:
+            fleet_stage = self._fleet_stage
+        return {
+            "policy_name": self._policy.name,
+            "flight_last_path": (self._flight.last_path
+                                 if self._flight is not None else ""),
+            "ring_topology": topo if isinstance(topo, str) else "flat",
+            "straggler_stage": fleet_stage,
+        }
+
+    def _log_event(self, **event: Any) -> None:
+        event["t"] = time.time()
+        # The monotonic stamp and the sequence number order this
+        # manager's events under wall-clock steps and across threads.
+        with self._metrics_lock:
+            event["t_mono_ns"] = time.monotonic_ns()
+            self._event_seq += 1
+            event["seq"] = self._event_seq
+            self._history.append(event)
+
+    def history(self) -> list:
+        """Recent membership / heal / abort / quarantine events (newest
+        last), served at the manager's ``GET /metrics.json``."""
+        with self._metrics_lock:
+            return list(self._history)
+
+    def _publish_status(self) -> None:
+        """Push metrics and history to the C++ manager server (rank 0),
+        which serves them at ``GET <manager addr>/metrics.json`` and
+        carries the counters on lighthouse heartbeats; then the fleet
+        digest. Observability never fails a training step."""
+        if self._manager_server is None:
+            return
+        try:
+            mx = self.metrics()
+            self._manager_server.set_status(
+                json.dumps({"replica_id": self._replica_id,
+                            "step": self._step,
+                            "quorum_id": self._quorum_id, "metrics": mx,
+                            "info": self.metrics_info(),
+                            "history": self.history()}),
+                int(mx["heal_count"]), int(mx["committed_steps"]),
+                int(mx["aborted_steps"]))
+            self._push_digest(mx)
+        except Exception:  # noqa: BLE001
+            logger.debug("status publish failed", exc_info=True)
+
+    def _push_digest(self, mx: Dict[str, float]) -> None:
+        """Refresh the per-step digest on the C++ manager server; it
+        rides the next quorum RPC beat. Called once per commit boundary
+        with that boundary's metrics: the step wall is the monotonic
+        time between boundaries, the stage split the tracer's span totals
+        of this step, the heal duration this boundary's counter delta;
+        with attestation, the committed state's fingerprint keyed by the
+        quorum id. The first boundary has no wall and pushes nothing."""
+        if not self._fleet_telemetry or self._manager_server is None:
+            return
+        now = time.monotonic()
+        prev = self._digest_prev
+        snap = {"t": now, "heal_ms_total": mx.get("heal_ms_total", 0.0),
+                "heal_count": mx.get("heal_count", 0.0)}
+        self._digest_prev = snap
+        if prev is None:
+            return
+        heal_last_ms = (max(snap["heal_ms_total"] - prev["heal_ms_total"],
+                            0.0)
+                        if snap["heal_count"] > prev["heal_count"] else 0.0)
+        stages = self._tracer.stage_totals(self._step)
+        try:
+            self._manager_server.set_digest(
+                step=self._step,
+                step_wall_ms=max(now - prev["t"], 0.0) * 1e3,
+                fetch_ms=stages.get("fetch_dispatch", 0.0)
+                + stages.get("fetch_wait", 0.0),
+                ring_ms=stages.get("ring", 0.0),
+                put_ms=stages.get("put", 0.0),
+                vote_ms=stages.get("vote", 0.0),
+                heal_bytes_inflight=mx.get("heal_last_bytes_committed",
+                                           0.0),
+                healing=bool(self._healing or not self.is_participating()),
+                heal_last_ms=heal_last_ms,
+                trace_addr=self._ckpt_server.address(),
+                quorum_id=self._quorum_id,
+                state_digest=self._compute_state_digest())
+        except Exception:  # noqa: BLE001 — observability never fails
+            logger.debug("digest push failed", exc_info=True)
+
+    def _compute_state_digest(self) -> str:
+        """The committed state's 32-hex attestation digest (four u32
+        words, :mod:`torchft_tpu_torch.ops.attest`: the card kernel for
+        the tensors on the card, 16 bytes to the host), or ``""`` when
+        attestation is off, the state holds no array leaf, or anything
+        goes wrong: an absent digest makes this group a non-voter at the
+        lighthouse, never a failed step (``sdc_digests_total`` counts the
+        digests made)."""
+        if not self._attestation:
+            return ""
+        try:
+            t0 = time.monotonic()
+            leaves = [leaf for leaf in tree_flatten(
+                self._user_state_dict())[0]
+                if serialization._is_array_leaf(leaf)
+                and serialization._leaf_nbytes(leaf)]
+            if not leaves:
+                return ""
+            digest = serialization.attest_combine(
+                attest_ops.attest_words(leaves))
+            self._record(sdc_digests_total=1,
+                         sdc_digest_ms_total=(time.monotonic() - t0) * 1e3)
+            self._last_state_digest = digest
+            return digest
+        except Exception:  # noqa: BLE001 — attestation never fails a step
+            logger.debug("state digest failed", exc_info=True)
+            return ""
+
+    # ----------------------------------------------- sdc chaos injection
+
+    def _maybe_chaos_sdc(self) -> None:
+        """:meth:`step`'s chaos hook: poll the ``sdc`` chaos channel once
+        per commit boundary and, on a decision, flip ONE bit of one
+        committed leaf. Participants only (a healer is mid-restore). No
+        schedule or no config for this endpoint draws nothing, so every
+        other channel's faults stay the same with the band off."""
+        with self._metrics_lock:
+            healing = self._healing
+            quarantined = self._sdc_quarantined
+        if healing or quarantined:
+            return
+        try:
+            d = chaos_mod.sdc_fault(f"sdc:{self._replica_id}")
+            if d is None:
+                return
+            self._apply_sdc_flip(d.frac)
+        except Exception:  # noqa: BLE001 — chaos never fails a step
+            logger.debug("sdc chaos injection failed", exc_info=True)
+
+    def _apply_sdc_flip(self, frac: float) -> None:
+        """Flip one bit of the committed state: the (leaf, byte, bit)
+        choice is a pure function of the decision's ``frac``, so a seeded
+        schedule corrupts the same bit run over run. A tensor leaf flips
+        in place, on its own device; any other leaf goes back through the
+        registered ``load_state_dict``."""
+        leaves, treedef = tree_flatten(self._user_state_dict())
+        idxs = [i for i, leaf in enumerate(leaves)
+                if serialization._is_array_leaf(leaf)
+                and serialization._leaf_nbytes(leaf)]
+        if not idxs:
+            return
+        li = idxs[int(frac * len(idxs)) % len(idxs)]
+        leaf = leaves[li]
+        nbytes = serialization._leaf_nbytes(leaf)
+        byte = int(frac * nbytes) % nbytes
+        bit = int(frac * 8) % 8
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach()
+            if not t.is_contiguous():
+                t = t.contiguous()
+            with torch.no_grad():
+                t.reshape(-1).view(torch.uint8)[byte] ^= 1 << bit
+            if t.data_ptr() != leaf.data_ptr():
+                leaves[li] = t
+        else:
+            a = np.array(leaf)  # contiguous host copy, any dtype
+            a.view(np.uint8).reshape(-1)[byte] ^= np.uint8(1 << bit)
+            leaves[li] = a
+        if leaves[li] is not leaf:
+            self._user_load_state_dict(tree_unflatten(treedef, leaves))
+        self._record(sdc_chaos_flips_total=1)
+        self._log_event(event="sdc_chaos_flip", step=self._step, leaf=li,
+                        byte=byte, bit=bit)
+        logger.warning("%s: chaos sdc_flip at step %d — leaf %d byte %d "
+                       "bit %d", self._replica_id, self._step, li, byte,
+                       bit)
 
     # ----------------------------------------------------------- state dicts
 
@@ -1253,8 +1928,10 @@ class Manager:
         return self._participating_world_size
 
     def is_participating(self) -> bool:
-        """False while healing (and so not at max_step)."""
-        return self._participating_rank is not None and not self._healing
+        """False while healing (and so not at max_step), or while a
+        divergence verdict holds this group out of the fold."""
+        return (self._participating_rank is not None
+                and not self._sdc_quarantined and not self._healing)
 
     def is_healing(self) -> bool:
         return self._healing
@@ -1287,6 +1964,8 @@ class Manager:
                 "gradients are dropped (flush before shutdown to apply "
                 "them)", self._replica_id)
             self._deferred = None
+        if self._flight is not None:
+            self._flight.close()
         self._ckpt_server.shutdown()
         self._executor.shutdown(wait=False, cancel_futures=True)
         # A queued put must still run: it resolves the aggregate future.
@@ -1296,6 +1975,34 @@ class Manager:
             self._manager_server.shutdown()
         if self._store_server is not None:
             self._store_server.shutdown()
+
+
+def _env_flag(value: Optional[bool], name: str) -> bool:
+    """A default-on switch: ``value`` when given, else the environment
+    variable ``name`` unless it says ``0`` or ``false``."""
+    if value is not None:
+        return bool(value)
+    return os.environ.get(name, "1").strip().lower() not in ("0", "false")
+
+
+def _addr_base(addr: str) -> str:
+    """Canonical server base of a checkpoint-plane URL — the one spelling
+    shared by the quarantine ledger and every donor resolver, so a group
+    quarantined by its trace address is recognized whatever route
+    (``…/checkpoint/{step}``, ``…/ramckpt/{step}``, bare base) a
+    consumer holds."""
+    if "/checkpoint/" in addr:
+        return addr.rsplit("/checkpoint/", 1)[0]
+    if "/ramckpt/" in addr:
+        return addr.rsplit("/ramckpt/", 1)[0]
+    return addr.rstrip("/")
+
+
+def _stripe_seed(replica_id: str) -> int:
+    """Per-healer stripe-shuffle seed: replica ids carry a per-process
+    uuid suffix, so concurrent healers derive different donor orders and
+    spread their first streams over the donor set."""
+    return zlib.crc32(replica_id.encode())
 
 
 # --------------------------------------------------------------- schedule

@@ -85,7 +85,7 @@ def argtypes() -> Dict[str, list]:
     return {"tft_flash_fwd": [vp] * 5 + dims,
             "tft_flash_bwd_dq": [vp] * 7 + dims,
             "tft_flash_bwd_dkdv": [vp] * 8 + dims,
-            "tft_flash_bwd_fused": [vp] * 9 + dims}
+            "tft_flash_bwd_fused": [vp] * 10 + dims}
 
 
 def _lib() -> ctypes.CDLL:
@@ -326,7 +326,10 @@ def flash_bwd_fused(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                     shift: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused-backward kernel: per-query-head ``dk, dv [B*H, Sk, D]`` in
-    the input dtype and ``dq [B*H, S, D]`` in f32."""
+    the input dtype and ``dq [B*H, S, D]`` in f32. The kernel sums dq
+    across its k tiles in a fixed order, so the result is bitwise equal
+    from run to run; its semaphores (one int per head and q tile of
+    :data:`BLOCK_Q` rows) share dq's zeroed allocation."""
     if _on_cpu(qh, kh, vh, doh, lse, delta):
         dq, dk, dv = bwd_plain(qh, kh, vh, doh, lse, delta, h, h_kv, causal,
                                shift)
@@ -335,11 +338,15 @@ def flash_bwd_fused(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     _check_kernel_inputs((qh, kh, vh, doh), (lse, delta), d)
     dk = torch.empty(bh, sk, d, dtype=kh.dtype, device=qh.device)
     dv = torch.empty_like(dk)
-    dq = torch.zeros(bh, s, d, dtype=torch.float32, device=qh.device)
+    n = bh * s * d
+    buf = torch.zeros(n + bh * -(-s // BLOCK_Q), dtype=torch.float32,
+                      device=qh.device)
+    dq, sem = buf[:n].view(bh, s, d), buf[n:].view(torch.int32)
     rc = _lib().tft_flash_bwd_fused(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), doh.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dq.data_ptr(), bh, h, h_kv, s, sk, d, *_mask_args(causal, shift),
+        dq.data_ptr(), sem.data_ptr(), bh, h, h_kv, s, sk, d,
+        *_mask_args(causal, shift),
         d ** -0.5, _stream(qh))
     _raise_if(rc, "bwd_fused")
     _count("bwd_fused", shift)

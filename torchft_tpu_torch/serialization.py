@@ -430,3 +430,97 @@ def device_put_like(arr: Any, target_leaf: Any) -> Any:
         return t.to(device=target_leaf.device, dtype=target_leaf.dtype,
                     copy=True)
     return arr
+
+
+def balanced_ranges(sizes: list, n: int) -> list:
+    """Contiguous byte-balanced ``[start, stop)`` index ranges, one per
+    group (possibly empty), partitioning ``range(len(sizes))``: the JAX
+    package's stripe partitioner, which the striped-heal fetch planner
+    (``checkpointing._HealSession.stripes``) uses, so a healer splits a
+    donor set exactly as a JAX healer would."""
+    total = float(sum(sizes)) or 1.0
+    ranges = []
+    start = 0
+    acc = 0.0
+    g = 0
+    for i, sz in enumerate(sizes):
+        acc += sz
+        while g < n - 1 and acc >= total * (g + 1) / n:
+            ranges.append((start, i + 1))
+            start = i + 1
+            g += 1
+    while len(ranges) < n:
+        ranges.append((start, len(sizes)))
+        start = len(sizes)
+    return ranges
+
+
+# --------------------------------------------------------------------------
+# State attestation words (the JAX package's serialization.py:184-236).
+# A committed state's fingerprint folds every array leaf's raw bytes, in
+# pytree order, into four u32 words: the byte sum, the position-weighted
+# byte sum, the byte-length chain and a rotate-xor mix. All arithmetic is
+# u32 wraparound, exact everywhere, so the card's kernel
+# (ops/attest.py, csrc/attest.cu) and this numpy reference agree bit for
+# bit, and so do the two packages.
+
+ATTEST_FNV_PRIME = 0x01000193
+ATTEST_FNV_BASIS = 0x811C9DC5
+_M32 = 0xFFFFFFFF
+_ATTEST_CHUNK = 1 << 24  # bytes of one leaf read at a time
+
+
+def _leaf_bytes(arr: Any) -> np.ndarray:
+    """A leaf's raw bytes as a flat uint8 array: a tensor through
+    ``.view(torch.uint8)`` (bool and bfloat16 included), numpy through
+    its buffer (a ``communicator.BF16`` array is its uint16 words)."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu().contiguous().reshape(-1)
+        return t.view(torch.uint8).numpy()
+    return np.frombuffer(np.ascontiguousarray(arr).tobytes(), np.uint8)
+
+
+def attest_leaf_words(arr: Any) -> Tuple[int, int, int]:
+    """``(w0, w1, nbytes mod 2^32)`` of one leaf's raw bytes: the numpy
+    reference of the card kernel's per-leaf stage."""
+    raw = _leaf_bytes(arr)
+    n = raw.size
+    w0 = w1 = 0
+    # Only the sums mod 2^32 matter, so u32 arithmetic that wraps (the
+    # card's) is exact; in chunks, so a large leaf's temporaries stay
+    # bounded.
+    for start in range(0, n, _ATTEST_CHUNK):
+        b = raw[start:start + _ATTEST_CHUNK].astype(np.uint32)
+        pos = (np.arange(b.size, dtype=np.uint32)
+               + np.uint32((start + 1) & _M32))
+        w0 += int(b.sum(dtype=np.uint32))
+        w1 += int((pos * b).sum(dtype=np.uint32))
+    return w0 & _M32, w1 & _M32, n & _M32
+
+
+def attest_fold(acc: List[int], w0: int, w1: int, n32: int) -> List[int]:
+    """Fold one leaf's words into the 4-word accumulator (u32
+    wraparound multiply-add; the card kernel runs the same ops)."""
+    p = ATTEST_FNV_PRIME
+    rot = ((w1 << 1) | (w1 >> 31)) & _M32
+    return [
+        (acc[0] * p + w0) & _M32,
+        (acc[1] * p + w1) & _M32,
+        (acc[2] * p + n32) & _M32,
+        ((acc[3] ^ w0 ^ rot) * p) & _M32,
+    ]
+
+
+def attest_combine(words: Any) -> str:
+    """The 4 accumulator words as the 32-hex-char state digest every
+    fleet digest carries (the card path hands its fetched words here)."""
+    return "".join(f"{int(w) & _M32:08x}" for w in words)
+
+
+def attest_fingerprint(leaves: List[Any]) -> str:
+    """Numpy reference of the committed-state fingerprint: fold every
+    array leaf (pytree order) and combine."""
+    acc = [ATTEST_FNV_BASIS] * 4
+    for leaf in leaves:
+        acc = attest_fold(acc, *attest_leaf_words(leaf))
+    return attest_combine(acc)

@@ -26,6 +26,12 @@ counts and, at the end, a sha256 of the parameters and optimizer state,
 and ``HOLD_AFTER_STEP``: a fault drill — after committing that step the
 process stops stepping and waits to be killed (``"held": true`` in the
 report); under overlap the held step's exchange is then still in flight.
+The report also carries the recovery plane: the digests made and their
+wall, the quarantine ladder's counters (``sdc``), the donors of the last
+heal (``heal_striped_donors``) and the last state digest pushed; with
+``REPORT_HOST_DIGEST=1``, the final report adds the attestation digest of
+the final state on the card and numpy's on a host copy (``final_digest``,
+tens of seconds at 7B widths).
 ``OVERLAP_STEPS=1`` runs the cross-step overlap engine: step N's
 allreduce drains under step N+1's forward and backward, and its vote and
 update land at the N+1 boundary (one-step-stale gradients); every group
@@ -42,11 +48,12 @@ import logging
 import os
 import tempfile
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
+from torchft_tpu_torch import serialization
 from torchft_tpu_torch.backends.host import HostCommunicator
 from torchft_tpu_torch.data import (DistributedSampler, StatefulLoader,
                                     TokenFileDataset)
@@ -56,6 +63,7 @@ from torchft_tpu_torch.models.transformer import (Transformer,
                                                   chunked_causal_lm_loss,
                                                   llama2_7b_config,
                                                   tiny_config)
+from torchft_tpu_torch.ops import attest
 from torchft_tpu_torch.ops import flash_attention as fa
 from torchft_tpu_torch.parallel.step import FTTrainer
 from torchft_tpu_torch.utils import tree_flatten_with_path
@@ -75,18 +83,32 @@ def make_config() -> TransformerConfig:
     return llama2_7b_config(**overrides)
 
 
-def state_hash(trainer: FTTrainer) -> str:
+# The recovery plane's counters in the report: digests and their wall,
+# the quarantine ladder, chaos flips.
+SDC_KEYS = ("sdc_digests_total", "sdc_digest_ms_total", "sdc_quarantined",
+            "sdc_quarantines_total", "sdc_quarantine_clears_total",
+            "sdc_reheals_total", "sdc_chaos_flips_total")
+
+
+def state_hash(trainer: FTTrainer, fingerprint: bool = False
+               ) -> Tuple[str, str]:
     """sha256 over every parameter and optimizer-state tensor, in the
-    serializer's sorted-key order."""
+    serializer's sorted-key order; with ``fingerprint``, also the numpy
+    attestation fingerprint of the same host copies (else "")."""
     h = hashlib.sha256()
+    acc = [serialization.ATTEST_FNV_BASIS] * 4
     for path, leaf in tree_flatten_with_path(trainer.state_dict())[0]:
         h.update("/".join(map(str, path)).encode())
         if isinstance(leaf, torch.Tensor):
-            h.update(leaf.detach().cpu().contiguous().view(-1)
-                     .view(torch.uint8).numpy().tobytes())
+            host = leaf.detach().cpu().contiguous()
+            h.update(host.view(-1).view(torch.uint8).numpy().tobytes())
+            if fingerprint and host.numel():
+                acc = serialization.attest_fold(
+                    acc, *serialization.attest_leaf_words(host))
         else:
             h.update(repr(leaf).encode())
-    return h.hexdigest()
+    return (h.hexdigest(),
+            serialization.attest_combine(acc) if fingerprint else "")
 
 
 def main(argv: Any = None) -> None:
@@ -107,6 +129,7 @@ def main(argv: Any = None) -> None:
     report_file = os.environ.get("REPORT_FILE")
     hold = os.environ.get("HOLD_AFTER_STEP")
     overlap = int(os.environ.get("OVERLAP_STEPS", 0))
+    host_digest_check = os.environ.get("REPORT_HOST_DIGEST") == "1"
 
     cfg = make_config()
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -164,17 +187,33 @@ def main(argv: Any = None) -> None:
         report.update(
             step=m.current_step(), heal_count=int(mx["heal_count"]),
             heal_ms=round(mx["heal_ms_total"], 1),
+            heal_bytes=mx["heal_bytes_total"],
             allreduce_ms=round(mx["allreduce_ms_total"], 1),
             allreduce_count=int(mx["allreduce_count"]),
             committed_steps=int(mx["committed_steps"]),
             aborted_steps=int(mx["aborted_steps"]),
             overlap_grads_dropped=int(mx["overlap_grads_dropped"]),
-            launches=dict(fa.LAUNCHES),
+            heal_striped_donors=int(mx["heal_striped_donors"]),
+            sdc={k: mx[k] for k in SDC_KEYS},
+            state_digest=m._last_state_digest,
+            sdc_events=[{"event": e["event"], "step": e["step"]}
+                        for e in m.history()
+                        if e["event"].startswith("sdc")],
+            launches={**fa.LAUNCHES, **attest.LAUNCHES},
             params_on_cpu=sum(p.device.type == "cpu"
                               for p in trainer.params.values())
             if device.type != "cpu" else 0)
         if final:
-            report["state_hash"] = state_hash(trainer)
+            report["state_hash"], host_digest = state_hash(trainer,
+                                                           host_digest_check)
+            if host_digest_check:
+                leaves = [t for t in tree_flatten_with_path(
+                    trainer.state_dict())[0] if isinstance(t[1], torch.Tensor)
+                    and t[1].numel()]
+                report["final_digest"] = {
+                    "card": serialization.attest_combine(
+                        attest.attest_words([t for _, t in leaves])),
+                    "host": host_digest}
         tmp = f"{report_file}.tmp"
         with open(tmp, "w") as f:
             json.dump(report, f)
