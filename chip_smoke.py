@@ -3,7 +3,7 @@
     python3 chip_smoke.py                     # every phase, one card
     python3 chip_smoke.py --phases kernels,sp # a subset of card,kernels,
                                               # ft,split,sp,wire,overlap,
-                                              # shard,attest
+                                              # shard,attest,durable
 
 Phases:
 
@@ -112,11 +112,35 @@ Phases:
    first. Logs each group's digest ms per boundary and the striped
    heal's wall and MB/s.
 
+10. **durable** — the durability plane: the ft cell's model in two
+   ``train_lm`` groups with ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY=2``
+   (``AsyncCheckpointer(keep=3)``, a snapshot on the card, the write on
+   the writer's thread); the phase first checks the disk has the 48 GB
+   its files take. Run A (a lighthouse with ``min_replicas=1``, 6
+   steps): group 1 gets SIGTERM once its report shows step 3 and must
+   drain — farewell, final save, exit 0 — with a graceful exit counted
+   and no deadline expired, its newest file verified, committed and
+   stamped with the step it drained at; group 0 must commit every step
+   across the departure (0 aborted) and finish step 6 alone. Run B: one
+   byte in the middle of group 1's newest file's payload is flipped, and
+   two fresh groups start on the same directories under a lighthouse
+   with two members per quorum, to step 7: group 0 resumes at step 6 with
+   the state hash it ended run A with (8.003 GB through the disk,
+   bitwise); group 1 quarantines the flipped file, falls back to an
+   older one and heals from group 0 at the first quorum; both commit
+   every step and end with equal hashes, finite losses and the flash
+   kernels launched; each group launched ``attest_words`` over the
+   phase. Logs each save's dispatch ms and snapshot ms on the card, the
+   writer's wall and MB/s, the step walls with and without a save, each
+   cold start's recover + load wall and MB/s, SIGTERM to exit, and the
+   peak card memory.
+
 Each phase's wall is logged. Launch counts are reset just before each
 driven path and read just after it. The line before the last is a JSON
 object with one entry per kernel: ``launches`` counts the ft phase (and
 the split and sp phases for their kernels), ``launches_overlap``,
-``launches_shard`` and ``launches_attest`` those paths' own launches;
+``launches_shard``, ``launches_attest`` and ``launches_durable`` those
+paths' own launches;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. float32 matmuls are pinned to full precision
 (TF32 off) so the plain versions are exact references.
@@ -808,10 +832,10 @@ def _spawn(group: int, seed: int, lighthouse: str, workdir: str,
         stderr=subprocess.STDOUT, start_new_session=True)
 
 
-def _wait_held(proc: subprocess.Popen, workdir: str, group: int, seed: int,
-               others: list) -> None:
-    """Until ``group``'s report says it holds after its HOLD_AFTER_STEP
-    step; fails if any process exits first."""
+def _wait_report(proc: subprocess.Popen, workdir: str, group: int,
+                 seed: int, others: list, done, what: str) -> None:
+    """Until ``done(report)`` holds for ``group``'s report; fails if any
+    of the processes exits first."""
     progress = os.path.join(workdir, f"report_{group}_{seed}.json")
     deadline = time.time() + 600
     while time.time() < deadline:
@@ -821,12 +845,16 @@ def _wait_held(proc: subprocess.Popen, workdir: str, group: int, seed: int,
                     rep = json.load(f)
                 except json.JSONDecodeError:
                     rep = {}
-            if rep.get("held"):
+            if done(rep):
                 return
         check(all(p.poll() is None for p in [proc, *others]),
-              "a replica group exited before the kill")
+              f"a replica group exited before group {group} reached {what}")
         time.sleep(0.05)
-    raise SmokeError(f"group {group} never reached its held step")
+    raise SmokeError(f"group {group} never reached {what}")
+
+
+def _held(rep: dict) -> bool:
+    return bool(rep.get("held"))
 
 
 def _read_report(workdir: str, group: int, seed: int) -> dict:
@@ -865,7 +893,7 @@ def _kill_and_heal(procs: list, tag: str, extra: dict) -> tuple:
         # overlap the held step's exchange is still in flight.
         g1 = _spawn(1, 1, addr, workdir, total, hold=3, extra=extra)
         procs += [g0, g1]
-        _wait_held(g1, workdir, 1, 1, [g0])
+        _wait_report(g1, workdir, 1, 1, [g0], _held, "its held step")
         os.killpg(g1.pid, signal.SIGKILL)
         g1.wait()
         log(f"{tag}: SIGKILLed group 1 after step 3 "
@@ -986,7 +1014,7 @@ def phase_attest(procs: list) -> dict:
         g2 = _spawn(2, 2, addr, workdir, ATTEST_STEPS, hold=ATTEST_HOLD,
                     groups=ATTEST_GROUPS)
         procs += [g0, g1, g2]
-        _wait_held(g2, workdir, 2, 2, [g0, g1])
+        _wait_report(g2, workdir, 2, 2, [g0, g1], _held, "its held step")
         before = _read_report(workdir, 2, 2)
         os.killpg(g2.pid, signal.SIGKILL)
         g2.wait()
@@ -1073,6 +1101,194 @@ def phase_attest(procs: list) -> dict:
     log(f"attest: restarted group 2's striped heal {r2['heal_ms']} ms for "
         f"{r2['heal_bytes'] / 1e6:.1f} MB "
         f"({r2['heal_bytes'] / 1e3 / max(r2['heal_ms'], 1e-9):.1f} MB/s)")
+    return {"launches": launches, "reports": reps}
+
+
+# The durable cell: the ft cell's model, both groups with CHECKPOINT_DIR
+# and CHECKPOINT_EVERY=2. Run A: group 1 gets SIGTERM once its report
+# shows DURABLE_SIGTERM_AT, drains and exits 0; group 0 steps on alone
+# to DURABLE_STEPS_A (a lighthouse with min_replicas=1). Run B: one byte
+# of group 1's newest file flipped, two fresh groups on the same
+# directories under a lighthouse with two members per quorum.
+DURABLE_EVERY = 2
+DURABLE_STEPS_A = 6
+DURABLE_SIGTERM_AT = 3
+DURABLE_STEPS_B = 7
+# Group 0 keeps 3 files, group 1 2, plus a file being written: about
+# 6 x 8.003 GB at the ft cell's widths.
+DURABLE_DISK_BYTES = 48e9
+
+
+def _flip_payload_byte(path: str) -> int:
+    """Flip one byte in the middle of a durable file's array payload;
+    returns its offset."""
+    from torchft_tpu_torch import checkpoint_io
+
+    with open(path, "rb") as f:
+        head, mf, start = checkpoint_io._open_verified(f)
+    first = start + int(mf["preamble_len"])
+    off = first + (start + int(head["payload_len"]) - first) // 2
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return off
+
+
+def _save_rows(tag: str, r: dict) -> None:
+    """Log each save of one report, and its steps' walls with and without
+    a save."""
+    for s in r["ckpt_saves"]:
+        nbytes = r["ckpt"]["ckpt_save_bytes_total"] / max(
+            r["ckpt"]["ckpt_save_count"], 1)
+        log(f"durable: {tag} save at step {s['step']}: dispatch_ms="
+            f"{s['dispatch_ms']} snapshot_card_ms="
+            f"{s.get('snapshot_card_ms')} write_ms={s.get('write_ms')} "
+            f"({nbytes / 1e3 / max(s.get('write_ms') or 0, 1e-9):.1f} MB/s"
+            f" of {nbytes / 1e9:.3f} GB) durable_ms={s.get('durable_ms')}")
+    walls = list(zip(r["step_s"], r["saved"]))
+    log(f"durable: {tag} step_s with a save {[w for w, s in walls if s]} "
+        f"without {[w for w, s in walls if not s]} "
+        f"peak_card_GB={r['peak_card_bytes'] / 1e9:.3f}")
+
+
+def phase_durable(procs: list) -> dict:
+    """The durability plane on the main path: see DURABLE_* above and the
+    module docstring."""
+    from torchft_tpu_torch import checkpoint_io
+    from torchft_tpu_torch._native import Lighthouse
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    ckdir = os.path.join(workdir, "ckpt")
+    lhs: list = []
+    try:
+        free = shutil.disk_usage(workdir).free
+        log(f"durable: {free / 1e9:.1f} GB free under {workdir}")
+        check(free >= DURABLE_DISK_BYTES,
+              f"durable: {free / 1e9:.1f} GB free under {workdir}, the "
+              f"phase needs {DURABLE_DISK_BYTES / 1e9:.0f} GB")
+        extra = {"CHECKPOINT_DIR": ckdir,
+                 "CHECKPOINT_EVERY": str(DURABLE_EVERY)}
+        # Run A: the graceful reclaim.
+        lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=1,
+                        join_timeout_ms=2000, quorum_tick_ms=50)
+        lhs.append(lh)
+        t0 = time.perf_counter()
+        g0 = _spawn(0, 0, lh.address(), workdir, DURABLE_STEPS_A,
+                    extra=extra)
+        g1 = _spawn(1, 1, lh.address(), workdir, DURABLE_STEPS_A,
+                    extra=extra)
+        procs += [g0, g1]
+        _wait_report(g1, workdir, 1, 1, [g0],
+                     lambda r: r.get("step", 0) >= DURABLE_SIGTERM_AT,
+                     f"step {DURABLE_SIGTERM_AT}")
+        t_sig = time.perf_counter()
+        os.kill(g1.pid, signal.SIGTERM)
+        _wait(g1, 600, "durable: group 1 after SIGTERM")
+        drain_s = time.perf_counter() - t_sig
+        _wait(g0, 900, "durable: group 0 (run A)")
+        a0, a1 = _read_report(workdir, 0, 0), _read_report(workdir, 1, 1)
+        # The drain's final save is the writer's time not in a cadence
+        # save's record.
+        final_ms = a1["ckpt"]["ckpt_save_ms_total"] - sum(
+            s.get("write_ms") or 0.0 for s in a1["ckpt_saves"])
+        log(f"durable: run A {time.perf_counter() - t0:.1f} s; group 1 "
+            f"SIGTERM to exit {drain_s:.2f} s (drained at step "
+            f"{a1['step']}, its final save's write {final_ms:.1f} ms)")
+        for r in (a0, a1):
+            log(f"durable: run A group {r['group']} steps={r['step']} "
+                f"committed={r['committed']} step_s={r['step_s']} "
+                f"aborted_steps={r['aborted_steps']} heal_ms={r['heal_ms']} "
+                f"ckpt={r['ckpt']} preempt={r['preempt']} "
+                f"preempted={r['preempted']} hash={r['state_hash'][:16]}")
+            _save_rows(f"run A group {r['group']}", r)
+        check(a1["preempted"] and a1["preempt"]["graceful_exits_total"] == 1
+              and a1["preempt"]["preempt_deadline_expired_total"] == 0,
+              f"durable: group 1 did not drain gracefully: {a1['preempt']}")
+        newest = checkpoint_io.latest(os.path.join(ckdir, "1"))
+        head = checkpoint_io.verify(newest)
+        check(head["committed"] and head["step"] == a1["step"],
+              f"durable: group 1's newest file {newest} is step "
+              f"{head['step']} (committed={head['committed']}), it drained "
+              f"at {a1['step']}")
+        check(a0["step"] == DURABLE_STEPS_A and all(a0["committed"])
+              and a0["aborted_steps"] == 0,
+              f"durable: group 0 aborted a step across the departure "
+              f"(committed={a0['committed']}, aborted={a0['aborted_steps']})")
+        check(checkpoint_io.verify(checkpoint_io.latest(
+            os.path.join(ckdir, "0")))["step"] == DURABLE_STEPS_A,
+            "durable: group 0's newest file is not its last step")
+        # Run B: a correlated failure, restarted cold from divergent,
+        # partly corrupt directories.
+        off = _flip_payload_byte(newest)
+        log(f"durable: flipped byte {off} of {newest}")
+        lh2 = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=2,
+                         join_timeout_ms=2000, quorum_tick_ms=50)
+        lhs.append(lh2)
+        t1 = time.perf_counter()
+        b0 = _spawn(0, 10, lh2.address(), workdir, DURABLE_STEPS_B,
+                    extra=extra)
+        b1 = _spawn(1, 11, lh2.address(), workdir, DURABLE_STEPS_B,
+                    extra=extra)
+        procs += [b0, b1]
+        _wait(b0, 900, "durable: group 0 (run B)")
+        _wait(b1, 900, "durable: group 1 (run B)")
+        log(f"durable: run B {time.perf_counter() - t1:.1f} s")
+        r0, r1 = _read_report(workdir, 0, 10), _read_report(workdir, 1, 11)
+        for r in (r0, r1):
+            res = r["resume"]
+            ms = res["recover_ms"] + res["load_ms"]
+            log(f"durable: run B group {r['group']} resumed_from="
+                f"{os.path.basename(r['resumed_from'])} recover_ms="
+                f"{res['recover_ms']} load_ms={res['load_ms']} ("
+                f"{res['bytes'] / 1e3 / max(ms, 1e-9):.1f} MB/s of "
+                f"{res['bytes'] / 1e9:.3f} GB) ckpt={r['ckpt']} "
+                f"heal_count={r['heal_count']} heal_ms={r['heal_ms']} "
+                f"committed={r['committed']} step_s={r['step_s']} "
+                f"losses={[round(x, 4) for x in r['losses']]} "
+                f"launches={r['launches']} hash={r['state_hash'][:16]} "
+                f"peak_card_GB={r['peak_card_bytes'] / 1e9:.3f}")
+        check(r0["resumed_step"] == DURABLE_STEPS_A
+              and r0["resumed_hash"] == a0["state_hash"],
+              "durable: group 0's cold start is not its run-A state "
+              f"(step {r0['resumed_step']})")
+        ck1 = r1["ckpt"]
+        check(ck1["ckpt_corrupt_quarantined"] == 1
+              and ck1["ckpt_recover_fallbacks"] >= 1
+              and os.path.exists(newest + ".corrupt"),
+              f"durable: group 1 did not quarantine the flipped file: {ck1}")
+        check(r1["resumed_step"] < a1["step"] and r1["heal_count"] >= 1,
+              f"durable: group 1 resumed at {r1['resumed_step']} and healed "
+              f"{r1['heal_count']} times")
+        for r in (r0, r1):
+            check(r["step"] == DURABLE_STEPS_B and all(r["committed"])
+                  and r["aborted_steps"] == 0,
+                  f"durable: group {r['group']} aborted after the cold start")
+            check(all(x == x and abs(x) != float("inf")
+                      for x in r["losses"]),
+                  f"durable: group {r['group']}: non-finite loss")
+            check(r["params_on_cpu"] == 0,
+                  f"durable: group {r['group']}: parameters on the CPU")
+            check(r["launches"]["fwd"] > 0
+                  and r["launches"]["bwd_fused"] > 0,
+                  f"durable: group {r['group']}: flash kernels not launched")
+        check(r0["state_hash"] == r1["state_hash"],
+              "durable: groups ended run B with different state")
+    finally:
+        for lh in lhs:
+            lh.shutdown()
+        for name in os.listdir(workdir):
+            if name.endswith(".log"):
+                shutil.copy(os.path.join(workdir, name),
+                            os.path.join(OUT_DIR, f"durable_{name}"))
+        shutil.rmtree(workdir, ignore_errors=True)
+    reps = [a0, a1, r0, r1]
+    launches = {n: sum(r["launches"][n] for r in reps) for n in KERNELS}
+    for g in (0, 1):
+        check(sum(r["launches"]["attest_words"] for r in reps
+                  if r["group"] == g) > 0,
+              f"durable: group {g} never launched attest_words")
     return {"launches": launches, "reports": reps}
 
 
@@ -1929,7 +2145,8 @@ def main(argv: list) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument(
         "--phases",
-        default="card,kernels,ft,split,sp,wire,overlap,shard,attest")
+        default="card,kernels,ft,split,sp,wire,overlap,shard,attest,"
+        "durable")
     # A rank of the sp phase's group, or a group of the wire phase
     # (started by the phase itself).
     ap.add_argument("--sp-worker", type=int, default=None)
@@ -1982,12 +2199,14 @@ def main(argv: list) -> int:
             launches.update(timed("sp", phase_sp, procs)["launches"])
         if "wire" in phases:
             timed("wire", phase_wire, procs)
-        # The overlap, shard and attest paths run the forward and the
-        # fused backward too: each path's own counts go under its own key.
+        # The overlap, shard, attest and durable paths run the forward
+        # and the fused backward too: each path's own counts go under its
+        # own key.
         added = {}
         for name, phase in (("overlap", phase_overlap),
                             ("shard", phase_shard),
-                            ("attest", phase_attest)):
+                            ("attest", phase_attest),
+                            ("durable", phase_durable)):
             if name in phases:
                 added[name] = timed(name, phase, procs)["launches"]
     finally:

@@ -117,7 +117,9 @@ def test_two_groups_leave_rejoin_heal_bitwise(fast_path):
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import no JAX; nor
     do the attestation wrapper's words (``csrc/attest.cu``'s plain route
-    on the CPU) and the numpy fingerprint, run once."""
+    on the CPU) and the numpy fingerprint, run once; nor a durable save,
+    recover and verified load through ``checkpoint_io``, and a Manager's
+    graceful drain (farewell, final save, ``PreemptedExit``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torchft_tpu_torch, chip_smoke\n"
@@ -132,6 +134,37 @@ def test_port_imports_no_jax():
         "leaves = [torch.ones(3), torch.zeros(2, dtype=torch.bfloat16)]\n"
         "assert serialization.attest_combine(attest.attest_words(leaves))"
         " == serialization.attest_fingerprint(leaves)\n"
+        "import tempfile\n"
+        "from unittest.mock import MagicMock\n"
+        "from torchft_tpu_torch import checkpoint_io, manager\n"
+        "from torchft_tpu_torch._native import QuorumResult\n"
+        "from torchft_tpu_torch.communicator import DummyCommunicator\n"
+        "d = tempfile.mkdtemp()\n"
+        "checkpoint_io.save(d + '/ckpt_1', {'w': leaves[1]})\n"
+        "user, _ = checkpoint_io.load(checkpoint_io.recover(d),\n"
+        "                             target={'w': leaves[1]})\n"
+        "assert torch.equal(user['w'], leaves[1])\n"
+        "c = MagicMock()\n"
+        "c.quorum.return_value = QuorumResult(1, 'm', 's', 1, 0, 1, 0, 1,"
+        " False)\n"
+        "c.should_commit.return_value = True\n"
+        "m = manager.Manager(comm=DummyCommunicator(),\n"
+        "    load_state_dict=MagicMock(),\n"
+        "    state_dict=lambda: {'w': leaves[0]},\n"
+        "    min_replica_size=1, rank=0, world_size=1, _manager_client=c,\n"
+        "    checkpoint_bind_host='127.0.0.1', heal_striped=False)\n"
+        "w = checkpoint_io.AsyncCheckpointer()\n"
+        "m.set_durable_target(w, d + '/drain')\n"
+        "m.step(); m.allreduce({'g': leaves[0]}).result()\n"
+        "assert m.should_commit()\n"
+        "m.request_preemption(30.0)\n"
+        "try:\n"
+        "    m.step()\n"
+        "    raise AssertionError('no drain')\n"
+        "except manager.PreemptedExit:\n"
+        "    pass\n"
+        "assert c.farewell.called\n"
+        "assert checkpoint_io.verify(d + '/drain/ckpt_1')['committed']\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'torchft_tpu')]\n"
         "assert not bad, bad\n")

@@ -122,6 +122,60 @@ def test_fast_path_counts_every_member_at_its_step():
         lh.shutdown()
 
 
+def test_farewell_cuts_a_waiting_fast_path_fan_in():
+    """Two groups step together on the fast path; then group 1 says
+    farewell while group 0 already waits in the fan-in for it at the next
+    step. Group 0 gets the shrunken quorum (world 1) at once — the
+    farewell breaks the fan-in to the slow path — well within the
+    join timeout it would otherwise wait out."""
+    join_timeout_ms = 6000
+    lh = _native.Lighthouse(bind="127.0.0.1:0", min_replicas=1,
+                            join_timeout_ms=join_timeout_ms,
+                            quorum_tick_ms=10, heartbeat_fresh_ms=300)
+    servers = [_native.ManagerServer(f"g{i}", lh.address(),
+                                     store_addr=f"st{i}", bind="127.0.0.1:0")
+               for i in range(2)]
+    clients = [_native.ManagerClient(s.address()) for s in servers]
+    results: dict = {}
+    try:
+        def ask(i, step):
+            results[(i, step)] = clients[i].quorum(
+                rank=0, step=step, checkpoint_server_addr=f"c{i}",
+                timeout_ms=20_000)
+
+        for step in range(1, 4):
+            ts = [threading.Thread(target=ask, args=(i, step))
+                  for i in range(2)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=30)
+                assert not t.is_alive(), "a group hung in the quorum"
+            assert results[(0, step)].max_world_size == 2
+        assert any(results[(0, s)].fast_path for s in (2, 3))
+
+        t0 = time.monotonic()
+        waiter = threading.Thread(target=ask, args=(0, 4))
+        waiter.start()
+        time.sleep(0.3)  # group 0 is now parked in the fan-in
+        assert waiter.is_alive()
+        t_bye = time.monotonic()
+        servers[1].farewell()
+        waiter.join(timeout=30)
+        assert not waiter.is_alive()
+        elapsed_ms = (time.monotonic() - t_bye) * 1e3
+        q = results[(0, 4)]
+        assert (q.replica_world_size, q.max_world_size) == (1, 1)
+        assert not q.fast_path  # the slow path cut the new quorum
+        assert q.quorum_id != results[(0, 3)].quorum_id
+        assert elapsed_ms < join_timeout_ms / 4, elapsed_ms
+        assert (time.monotonic() - t0) * 1e3 < join_timeout_ms / 2
+    finally:
+        for s in servers:
+            s.shutdown()
+        lh.shutdown()
+
+
 def test_core_copy_has_no_cmake_build():
     """The port builds its core with g++ (``_native.py``), never cmake: the
     JAX core's CMakeLists.txt, which names its C++ test binary and

@@ -35,9 +35,16 @@ RPC and the fleet hint it echoes (``fleet_telemetry``, ``_push_digest``
 on the card (``ops.attest``, 16 bytes to the host), the lighthouse
 majority-votes the fingerprints, and a group that loses the vote is
 quarantined and re-heals from the attested majority (:1594-1782). The
-policy controller, rebalancing, degraded mode, the RAM tier, publication
-and preemption drains are later sub-slices; their constructor arguments
-are not accepted.
+durability plane and the churn surface: the commit-coupled
+``save_durable`` (:4647) through
+:class:`~torchft_tpu_torch.checkpoint_io.AsyncCheckpointer`,
+``cold_start`` from the newest verified committed file (:4824, the disk
+rung), the graceful preemption drain (``install_preemption_handler``,
+``request_preemption`` .. ``_execute_drain``, :2922-3175: farewell, final
+save, advertisements withdrawn, :class:`PreemptedExit`), ``prejoin_heal``
+(:3217) and the join-coalescing count. The policy controller,
+rebalancing, degraded mode, the RAM tier and publication are later
+sub-slices; their constructor arguments are not accepted.
 
 The device side of the allreduce is torch, on the gradients' device (a
 CUDA card, or the CPU in tests): each bucket's gradient leaves are packed
@@ -57,10 +64,13 @@ from __future__ import annotations
 import json
 import logging
 import os
+import random
+import signal
 import socket
 import sys
 import threading
 import time
+import urllib.request
 import uuid
 import zlib
 from collections import OrderedDict, deque
@@ -72,9 +82,11 @@ import numpy as np
 import torch
 
 from torchft_tpu_torch import chaos as chaos_mod
+from torchft_tpu_torch import checkpoint_io
 from torchft_tpu_torch import policy as policy_mod
 from torchft_tpu_torch import serialization
 from torchft_tpu_torch import tracing as tracing_mod
+from torchft_tpu_torch import transport
 from torchft_tpu_torch._native import (ManagerClient, ManagerServer, Store,
                                        StoreClient)
 from torchft_tpu_torch.checkpointing import CheckpointServer
@@ -97,6 +109,47 @@ _MAX_DONOR_FAILOVERS = 3
 # heal's max_step before dropping it (_healset_scrape).
 _HEALSET_CATCH_UP_SEC = 2.0
 T = TypeVar("T")
+
+
+class _LatencyReservoir:
+    """Bounded reservoir (Vitter's algorithm R) over a latency stream with
+    the max kept exactly: p50 / p95 stay representative of the whole run
+    at O(1) memory. Seeded, so two identically driven managers report the
+    same percentiles. Callers hold the manager's metrics lock."""
+
+    def __init__(self, size: int = 256, seed: int = 0xA5) -> None:
+        self._size = size
+        self._samples: List[float] = []
+        self._n = 0
+        self._max = 0.0
+        self._rng = random.Random(seed)
+
+    def add(self, value_ms: float) -> None:
+        self._n += 1
+        self._max = max(self._max, value_ms)
+        if len(self._samples) < self._size:
+            self._samples.append(value_ms)
+        else:
+            j = self._rng.randrange(self._n)
+            if j < self._size:
+                self._samples[j] = value_ms
+
+    def percentiles(self) -> Dict[str, float]:
+        """``{p50, p95, max}`` in ms (zeros before the first sample)."""
+        if not self._samples:
+            return {"p50": 0.0, "p95": 0.0, "max": 0.0}
+        s = sorted(self._samples)
+        return {"p50": s[len(s) // 2],
+                "p95": s[min(len(s) - 1, int(len(s) * 0.95))],
+                "max": self._max}
+
+
+class PreemptedExit(RuntimeError):
+    """Raised by :meth:`Manager.step` once a graceful preemption drain
+    has completed: the manager has said farewell to the quorum, taken its
+    final durable save, withdrawn its advertisements and shut down. The
+    training loop must exit with status 0 — the noticed-reclaim success
+    path, not a failure."""
 
 
 class Manager:
@@ -316,10 +369,15 @@ class Manager:
         self._shutdown_done = False
         self._metrics: Dict[str, float] = {
             "quorum_count": 0, "quorum_ms_total": 0.0, "quorum_ms_last": 0.0,
+            # Rounds the lighthouse answered on its fast path or its slow
+            # path, and the last answer's epoch.
+            "quorum_fast_path_hits": 0, "quorum_slow_path_rounds": 0,
+            "quorum_epoch_last": 0,
             "reconfigure_count": 0, "reconfigure_ms_total": 0.0,
             "heal_count": 0, "heal_ms_total": 0.0, "heal_bytes_total": 0.0,
             "heal_bytes_resumed_total": 0.0, "heal_donor_failovers": 0.0,
-            "heal_attempts_total": 0.0,
+            "heal_attempts_total": 0.0, "heal_leaf_digest_mismatches": 0.0,
+            "heal_redials_avoided": 0.0,
             "heal_last_bytes_committed": 0.0, "heal_last_payload_bytes": 0.0,
             "allreduce_count": 0, "allreduce_ms_total": 0.0,
             "allreduce_fetch_ms_total": 0.0,
@@ -352,8 +410,46 @@ class Manager:
             "sdc_quarantined": 0.0, "sdc_quarantines_total": 0.0,
             "sdc_quarantine_clears_total": 0.0, "sdc_reheals_total": 0.0,
             "sdc_refusals_total": 0.0, "sdc_chaos_flips_total": 0.0,
+            # Durable checkpoints: corrupt snapshots quarantined and newer
+            # candidates skipped by recovery scans, the legacy last
+            # resort, cold starts, and commit-coupled saves refused
+            # (mid-heal, errored, uncommitted, deferred, quarantined).
+            # The writer's own counters (ckpt_save_*) merge in from the
+            # attached AsyncCheckpointer in metrics().
+            "ckpt_corrupt_quarantined": 0.0, "ckpt_recover_fallbacks": 0.0,
+            "ckpt_recover_legacy": 0.0, "ckpt_cold_starts": 0.0,
+            "ckpt_save_skipped": 0.0,
+            # Spot-instance churn: reclaim notices, drains deferred past
+            # an unclean boundary, graceful exits, deadlines that expired
+            # before the drain landed, pre-join heals, and joiners
+            # admitted as one membership delta (a lower bound: managers
+            # see only the net world delta). reconfigures_per_min is
+            # computed when metrics() is read.
+            "preempt_notices_total": 0.0,
+            "preempt_drain_deferrals_total": 0.0,
+            "preempt_deadline_expired_total": 0.0,
+            "graceful_exits_total": 0.0, "prejoin_heals_total": 0.0,
+            "joins_coalesced_total": 0.0,
         }
         self._metrics_lock = threading.Lock()
+        # p50 / p95 / max of the quorum round's wall (metrics()).
+        self._quorum_latency = _LatencyReservoir()
+        # Graceful preemption drain: the armed notice ({"deadline":
+        # monotonic, "reason", "pending_notices"}), the drain's outcome
+        # (landed, or expired to hard-kill behaviour), and the
+        # (writer, directory, prefix, user_state_fn) its final save goes
+        # to — set by set_durable_target, or remembered from a plain
+        # save_durable.
+        self._preempt: Optional[Dict[str, Any]] = None
+        self._drained = False
+        self._preempt_expired = False
+        self._durable_target: Optional[tuple] = None
+        self._durable_explicit = False
+        self._ckpt_writer: Optional[Any] = None
+        # Ring rebuild times (the reconfigures_per_min gauge) and the
+        # world of the last one (join coalescing).
+        self._reconfig_times: deque = deque(maxlen=512)
+        self._last_world = 0
         self._retry_policy = RetryPolicy()
         self._retry_stats = RetryStats()
         self._heal_stall_timeout_sec = float(
@@ -459,6 +555,21 @@ class Manager:
         previous step committed, re-open the heal window, and start the
         quorum round off the critical path. Refuses to advance while a
         deferred step is in flight: its vote gates this advance."""
+        if self._drained:
+            raise PreemptedExit(
+                f"{self._replica_id}: graceful preemption drain completed "
+                f"at step {self._step}; the training loop must exit")
+        # A pending reclaim notice lands HERE, the post-apply edge of the
+        # last commit boundary: the caller has applied the committed
+        # update, so the final save follows the cadence saves'
+        # convention. Unclean boundaries defer it to the next one.
+        if self._preempt is not None:
+            self._maybe_drain(self._should_step)
+            if self._drained:
+                raise PreemptedExit(
+                    f"{self._replica_id}: graceful preemption drain "
+                    f"completed at step {self._step}; the training loop "
+                    "must exit")
         if self._deferred is not None:
             raise RuntimeError(
                 f"{self._replica_id}: step {self._step} has a deferred "
@@ -505,11 +616,20 @@ class Manager:
                 rank=self._rank, step=self._step,
                 checkpoint_server_addr=self._ckpt_server.address(),
                 timeout_ms=self._quorum_timeout_ms)
-            sp.set(quorum_id=q.quorum_id)
+            # A scripted client's answer may lack the fast_path / epoch
+            # fields (or carry mocks there).
+            fast = getattr(q, "fast_path", False) is True
+            sp.set(fast=fast, quorum_id=q.quorum_id)
         quorum_ms = (time.perf_counter() - t0) * 1e3
-        self._record(quorum_count=1, quorum_ms_total=quorum_ms)
+        self._record(quorum_count=1, quorum_ms_total=quorum_ms,
+                     quorum_fast_path_hits=1 if fast else 0,
+                     quorum_slow_path_rounds=0 if fast else 1)
         with self._metrics_lock:
             self._metrics["quorum_ms_last"] = quorum_ms
+            self._quorum_latency.add(quorum_ms)
+            epoch = getattr(q, "epoch", 0)
+            if isinstance(epoch, int):
+                self._metrics["quorum_epoch_last"] = epoch
         if (q.replica_world_size <= 0 or q.quorum_id <= 0
                 or not 0 <= q.replica_rank < q.replica_world_size):
             raise RuntimeError(
@@ -555,6 +675,17 @@ class Manager:
             reconf_t0 = time.perf_counter()
             self._comm.configure(store_prefixed, q.replica_rank,
                                  q.replica_world_size)
+            # Join coalescing: a reconfigure that grew the world by K > 1
+            # admitted K joiners as one delta; count K - 1. Not on our own
+            # first round (the jump is us discovering the fleet) nor on a
+            # recovery rendezvous (membership unchanged).
+            if not recovery and self._quorum_id != -1:
+                grown = q.replica_world_size - self._last_world
+                if grown > 1:
+                    self._record(joins_coalesced_total=grown - 1)
+            self._last_world = q.replica_world_size
+            with self._metrics_lock:
+                self._reconfig_times.append(time.monotonic())
             self._quorum_id = q.quorum_id
             self._comm_poisoned = False
             self._record(reconfigure_count=1, reconfigure_ms_total=(
@@ -631,7 +762,10 @@ class Manager:
                 heal_bytes_total=heal_stats.get("bytes", 0.0),
                 heal_bytes_resumed_total=heal_stats.get("bytes_resumed", 0.0),
                 heal_donor_failovers=heal_stats.get("donor_failovers", 0.0),
-                heal_attempts_total=heal_stats.get("attempts", 0.0))
+                heal_leaf_digest_mismatches=heal_stats.get(
+                    "digest_mismatches", 0.0),
+                heal_attempts_total=heal_stats.get("attempts", 0.0),
+                heal_redials_avoided=heal_stats.get("redials_avoided", 0.0))
             with self._metrics_lock:  # a gauge, not a counter
                 self._metrics["heal_striped_donors"] = heal_stats.get(
                     "donors_used", 1.0)
@@ -1007,6 +1141,419 @@ class Manager:
             except Exception:  # noqa: BLE001 — withdrawal is best-effort
                 logger.debug("healset withdrawal failed", exc_info=True)
         self._ckpt_server.disallow_checkpoint()
+
+    # ------------------------------------------------- durable checkpoints
+
+    def set_durable_target(self, writer: Any, directory: str,
+                           prefix: str = "ckpt_",
+                           user_state_fn: Optional[Callable[[], Any]]
+                           = None) -> None:
+        """Register where the graceful drain's FINAL durable save goes,
+        and attach ``writer``'s counters to :meth:`metrics`.
+        ``user_state_fn`` is the snapshot source for that save when the
+        durable tree is richer than the manager-registered state (a
+        trainer saving its loader position alongside): the drain's file
+        must load against the same target as the cadence saves. An
+        explicit registration is never overwritten by later
+        :meth:`save_durable` calls."""
+        self._ckpt_writer = writer
+        self._durable_target = (writer, directory, prefix, user_state_fn)
+        self._durable_explicit = True
+
+    def save_durable(self, writer: Any, directory: str,
+                     prefix: str = "ckpt_",
+                     user_state: Optional[Any] = None) -> Optional[Future]:
+        """Commit-coupled durable snapshot: write
+        ``{directory}/{prefix}{step}`` via ``writer``
+        (:class:`~torchft_tpu_torch.checkpoint_io.AsyncCheckpointer`),
+        stamping the commit step, the quorum metadata (``quorum_id``,
+        ``replica_id``, ``participants``) and the ``committed`` marker
+        into the file head. Returns the writer's Future.
+
+        Refuses — returning ``None`` and counting ``ckpt_save_skipped`` —
+        when the state is not a settled committed step's: a heal staged,
+        an error latched, the last vote aborted, a deferred allreduce in
+        flight (metadata and params would describe different steps;
+        flush it first), or a divergence verdict (the bytes lost the
+        fleet's vote). The next committed step's save covers the gap.
+
+        ``user_state`` overrides the snapshot source (default: the
+        registered ``state_dict``). Recovery is :meth:`cold_start`."""
+        with self._metrics_lock:
+            healing = self._healing
+            quarantined = self._sdc_quarantined
+        committed = self._should_step
+        deferred = self.deferred_pending()
+        if healing or self._errored is not None or not committed \
+                or deferred or quarantined:
+            logger.warning(
+                "%s: skipping durable snapshot at step %d (healing=%s "
+                "errored=%s committed=%s deferred=%s quarantined=%s) — "
+                "state is not a settled committed step's%s",
+                self._replica_id, self._step, healing,
+                self._errored is not None, committed, deferred, quarantined,
+                " (flush() the deferred step first)" if deferred else "")
+            self._record(ckpt_save_skipped=1)
+            if quarantined:
+                self._record(sdc_refusals_total=1)
+            self._log_event(
+                event="ckpt_skip", step=self._step, healing=healing,
+                errored=self._errored is not None, committed=committed,
+                deferred=deferred, quarantined=quarantined)
+            return None
+        self._ckpt_writer = writer
+        # The drain's final save reuses a plain save's target. A call with
+        # an explicit user_state is not remembered: the drain would write
+        # the registered tree while the cadence files hold the richer one,
+        # and the newest file would break resume on the mismatch.
+        if not self._durable_explicit and user_state is None:
+            self._durable_target = (writer, directory, prefix, None)
+        meta = {
+            "committed": True,
+            "quorum_id": self._quorum_id,
+            "replica_id": self._replica_id,
+            "participants": self._participating_world_size,
+        }
+        path = os.path.join(directory, f"{prefix}{self._step}")
+        state = (user_state if user_state is not None
+                 else self._user_state_dict())
+        # The span covers the dispatch (the snapshot); the write runs on
+        # the writer's thread and is timed by its own counters.
+        with self._tracer.span("ckpt_save", path=path):
+            fut = writer.save_async(path, state, self.state_dict(),
+                                    meta=meta)
+        self._log_event(event="ckpt_save", step=self._step, path=path)
+        return fut
+
+    def cold_start(self, directory: str,
+                   prefix: str = "ckpt_") -> Optional[str]:
+        """Correlated-failure recovery: restore this group from the
+        newest **verified committed** durable snapshot under
+        ``directory`` (:func:`checkpoint_io.recover` quarantines torn or
+        corrupt files, never loads them) and return its path, or ``None``
+        for a fresh start. Both the user state and the manager metadata
+        are restored, so the next :meth:`step` joins the quorum at the
+        recovered step; groups that recovered different steps converge
+        through the max_step heal."""
+        stats: Dict[str, float] = {}
+        path = checkpoint_io.recover(directory, prefix=prefix, stats=stats)
+        self._record(**stats)
+        if path is None:
+            self._log_event(
+                event="cold_start", recovered=False,
+                quarantined=stats.get("ckpt_corrupt_quarantined", 0.0))
+            return None
+        user, mgr_state = checkpoint_io.load(
+            path, target=self._user_state_dict())
+        self._user_load_state_dict(user)
+        self.load_state_dict(mgr_state)
+        self._record(ckpt_cold_starts=1)
+        self._log_event(
+            event="cold_start", recovered=True, path=path, step=self._step,
+            quarantined=stats.get("ckpt_corrupt_quarantined", 0.0),
+            fallbacks=stats.get("ckpt_recover_fallbacks", 0.0))
+        logger.info(
+            "%s cold-started from %s at step %d (%d corrupt quarantined, "
+            "%d fallbacks)", self._replica_id, path, self._step,
+            int(stats.get("ckpt_corrupt_quarantined", 0.0)),
+            int(stats.get("ckpt_recover_fallbacks", 0.0)))
+        return path
+
+    # ------------------------------------------- graceful preemption drain
+    # A reclaim notice (SIGTERM through install_preemption_handler, or
+    # request_preemption) arms a drain that lands at the next CLEAN commit
+    # boundary — the step() after it, once the caller has applied the
+    # committed update — with save_durable's refusal discipline: a
+    # boundary mid-heal, mid-deferred, errored or aborted defers it. The
+    # drain: (1) farewell FIRST, so the survivors' next quorum round is
+    # cut without us before they run a collective against a peer about
+    # to vanish; (2) the final durable save to the registered target;
+    # (3) the advertisements withdrawn; (4) shutdown, after which step()
+    # raises PreemptedExit. Past the deadline the drain degrades to
+    # hard-kill behaviour with a flight dump.
+
+    def request_preemption(self, deadline_s: Optional[float] = None,
+                           reason: str = "reclaim",
+                           _signal_safe: bool = False) -> float:
+        """Arm the graceful drain. Every notice counts; the EARLIEST
+        deadline wins; a notice after an expired one re-arms.
+        ``deadline_s`` defaults to ``TORCHFT_RECLAIM_SEC`` (120).
+
+        ``_signal_safe`` (the SIGTERM handler passes True) takes no lock:
+        a handler runs on the main thread between bytecodes, and a lock
+        the interrupted frame holds would deadlock the loop. The
+        accounting is staged in plain field writes and flushed by
+        :meth:`_maybe_drain`. Returns the deadline in force (s from
+        now)."""
+        if deadline_s is None:
+            deadline_s = float(os.environ.get("TORCHFT_RECLAIM_SEC", 120.0))
+        deadline_s = max(float(deadline_s), 0.0)
+        now = time.monotonic()
+        # A local snapshot: the training thread's drain may null the
+        # attribute while a watcher thread's notice arrives.
+        p = self._preempt
+        if p is None:
+            p = {"deadline": now + deadline_s, "reason": str(reason),
+                 "pending_notices": 1}
+            self._preempt = p
+        elif self._preempt_expired:
+            p["deadline"] = now + deadline_s
+            p["reason"] = str(reason)
+            p["pending_notices"] += 1
+            self._preempt_expired = False
+        else:
+            p["deadline"] = min(p["deadline"], now + deadline_s)
+            p["pending_notices"] += 1
+        remaining = p["deadline"] - now
+        if not _signal_safe:
+            self._flush_preempt_notices()
+            logger.warning(
+                "%s: preemption notice (%s) — draining at the next clean "
+                "commit boundary, deadline %.1fs", self._replica_id, reason,
+                remaining)
+        return remaining
+
+    def _flush_preempt_notices(self) -> None:
+        """Move signal-staged notice accounting into the locked counters
+        and events, on the training thread."""
+        p = self._preempt
+        if p is None:
+            return
+        pending = p.get("pending_notices", 0)
+        if pending:
+            p["pending_notices"] = 0
+            self._record(preempt_notices_total=pending)
+            self._log_event(
+                event="preempt_notice", step=self._step,
+                deadline_s=round(p["deadline"] - time.monotonic(), 3),
+                reason=p["reason"], notices=pending)
+
+    def install_preemption_handler(
+            self, deadline_s: Optional[float] = None,
+            signum: int = signal.SIGTERM) -> Any:
+        """Turn ``signum`` (the cloud's reclaim signal) into
+        :meth:`request_preemption`, chaining a previously installed
+        handler. Returns the previous handler. Main thread only."""
+        prev = signal.getsignal(signum)
+
+        def handler(sig: int, frame: Any) -> None:
+            self.request_preemption(deadline_s, reason=f"signal {sig}",
+                                    _signal_safe=True)
+            if callable(prev) and prev not in (signal.SIG_IGN,
+                                               signal.SIG_DFL):
+                prev(sig, frame)
+
+        signal.signal(signum, handler)
+        return prev
+
+    def preemption_pending(self) -> bool:
+        """True while a notice is armed and the drain has neither landed
+        nor expired."""
+        return (self._preempt is not None and not self._drained
+                and not self._preempt_expired)
+
+    def drained(self) -> bool:
+        """True once the drain completed; :meth:`step` then raises
+        :class:`PreemptedExit`."""
+        return self._drained
+
+    def _maybe_drain(self, decision: bool) -> None:
+        """Land the drain, defer it past an unclean boundary, or expire
+        it; at the top of :meth:`step`, where nothing is in flight."""
+        p = self._preempt
+        if p is None or self._drained or self._preempt_expired:
+            return
+        self._flush_preempt_notices()
+        with self._metrics_lock:
+            healing = self._healing
+        blocked = []
+        if healing:
+            blocked.append("healing")
+        if self._deferred is not None:
+            blocked.append("deferred in flight")
+        if self._errored is not None:
+            blocked.append("errored")
+        if not decision:
+            blocked.append("vote aborted")
+        if time.monotonic() > p["deadline"]:
+            self._expire_preemption(",".join(blocked) or "notice deadline "
+                                    "passed before a boundary")
+            return
+        if blocked:
+            self._record(preempt_drain_deferrals_total=1)
+            self._log_event(event="preempt_deferred", step=self._step,
+                            why=",".join(blocked))
+            logger.warning(
+                "%s: preemption drain deferred at step %d (%s); retrying "
+                "at the next boundary", self._replica_id, self._step,
+                ",".join(blocked))
+            return
+        self._execute_drain(p)
+
+    def _expire_preemption(self, why: str) -> None:
+        """The deadline passed before the drain landed: hard-kill
+        behaviour (survivors will see a crash), with a flight dump of
+        where the drain was stuck."""
+        self._preempt_expired = True
+        self._record(preempt_deadline_expired_total=1)
+        self._log_event(event="preempt_deadline_expired", step=self._step,
+                        why=why)
+        self._flight_dump("preempt_deadline_expired", why=why)
+        logger.error("%s: preemption deadline expired before the drain "
+                     "landed (%s); degrading to hard-kill behavior",
+                     self._replica_id, why)
+
+    def _execute_drain(self, p: Dict[str, Any]) -> None:
+        self._log_event(event="preempt_drain", step=self._step,
+                        reason=p["reason"])
+        # (1) Farewell first (section comment).
+        self._send_farewell()
+        # (2) The final durable save, bounded by the remaining deadline.
+        if self._durable_target is not None:
+            writer, directory, prefix, user_fn = self._durable_target
+            remaining = p["deadline"] - time.monotonic()
+            try:
+                fut = self.save_durable(
+                    writer, directory, prefix=prefix,
+                    user_state=user_fn() if user_fn is not None else None)
+                if fut is None:
+                    # Refused: the state turned unclean after the check.
+                    # Completing would claim a final save not written.
+                    self._expire_preemption(
+                        "final durable save refused (state no longer a "
+                        "settled committed step's)")
+                    return
+                fut.result(timeout=max(remaining, 0.001))
+            except Exception as e:  # noqa: BLE001
+                self._expire_preemption(f"final durable save failed: {e!r}")
+                return
+        # (3) Withdraw the advertisements.
+        self._withdraw_advertisements()
+        # (4) Done; step() raises PreemptedExit from now on.
+        self._drained = True
+        self._preempt = None
+        self._record(graceful_exits_total=1)
+        self._log_event(event="graceful_exit", step=self._step,
+                        reason=p["reason"])
+        logger.warning(
+            "%s: graceful preemption drain complete at step %d (farewell "
+            "sent, final save %s, advertisements withdrawn)",
+            self._replica_id, self._step,
+            "taken" if self._durable_target is not None
+            else "skipped (no durable target registered)")
+        self.shutdown()
+
+    def _send_farewell(self) -> None:
+        """The quorum farewell (leaving beat): the survivors' next round
+        cuts the shrunken quorum at once instead of waiting out
+        staleness. Best-effort — a lost farewell degrades to the
+        staleness eviction a crash gets."""
+        sent = False
+        try:
+            fw = (getattr(self._manager_server, "farewell", None)
+                  if self._manager_server is not None else None)
+            if fw is not None:
+                fw()
+                sent = True
+        except Exception:  # noqa: BLE001
+            logger.warning("%s: farewell via manager server failed",
+                           self._replica_id, exc_info=True)
+        if not sent:
+            # An externally wired control plane (tests) carries the
+            # leaving intent on its client.
+            fw = getattr(self._client, "farewell", None)
+            if fw is not None:
+                try:
+                    fw()
+                    sent = True
+                except Exception:  # noqa: BLE001
+                    logger.warning("%s: farewell via client failed",
+                                   self._replica_id, exc_info=True)
+        self._log_event(event="farewell", step=self._step, sent=sent)
+
+    # ------------------------------------------- join admission control
+
+    def prejoin_heal(self, fleet: Any,
+                     resolve: Optional[Callable[[str], str]] = None,
+                     timeout_sec: float = 60.0) -> bool:
+        """Join backpressure: fetch the fleet's newest committed state
+        BEFORE this manager's first quorum join, so a replacement enters
+        the voting quorum already at max_step instead of joining as a
+        mid-heal member.
+
+        ``fleet`` is the lighthouse's ``host:port`` (its
+        ``GET /status.json`` lists members and steps) or a zero-arg
+        callable returning that dict. ``resolve`` maps a member's manager
+        address to its checkpoint-server URL (default: the manager's
+        ``checkpoint_address`` RPC). The fetch stripes across every
+        admissible max-step member and verifies every leaf digest before
+        placement. Best-effort: any failure returns False and the
+        in-quorum heal covers correctness. True when a newer state was
+        adopted."""
+        if self._quorum_id != -1:
+            raise RuntimeError(
+                f"{self._replica_id}: prejoin_heal must run BEFORE the "
+                "first quorum join — this manager already joined "
+                f"quorum {self._quorum_id}")
+        try:
+            if callable(fleet):
+                status = fleet()
+            else:
+                with urllib.request.urlopen(
+                        f"http://{fleet}/status.json",
+                        timeout=timeout_sec) as resp:
+                    status = json.loads(resp.read().decode())
+            members = list(status.get("members", []))
+            if not members:
+                return False
+            fleet_step = max(int(m.get("step", 0)) for m in members)
+            if fleet_step <= self._step:
+                return False  # already current: just join
+            resolve = resolve or self._resolve_checkpoint_addr
+            addrs: list = []
+            for m in members:
+                if int(m.get("step", 0)) != fleet_step \
+                        or not m.get("address"):
+                    continue
+                try:
+                    a = resolve(m["address"])
+                    # A custom resolver bypasses _resolve_checkpoint_addr's
+                    # check: a quarantined member must not seed us.
+                    if a and a not in addrs and self._donor_admissible(a):
+                        addrs.append(a)
+                except Exception:  # noqa: BLE001 — skip that donor
+                    logger.debug("prejoin donor resolve failed",
+                                 exc_info=True)
+            if not addrs:
+                return False
+            stats: Dict[str, float] = {}
+            with self._tracer.span("prejoin_heal", donors=len(addrs),
+                                   fleet_step=fleet_step):
+                state = CheckpointServer.load_from_address(
+                    addrs[0], self._manager_state_dict(), stats=stats,
+                    auth_token=self._auth_token,
+                    retry_policy=self._retry_policy,
+                    retry_stats=self._retry_stats,
+                    stall_timeout_sec=self._heal_stall_timeout_sec,
+                    donors=lambda i: None, max_donor_failovers=0,
+                    donor_addrs=addrs if len(addrs) > 1 else None,
+                    stripe_seed=_stripe_seed(self._replica_id),
+                    tracer=self._tracer)
+            self.load_state_dict(state["torchft"])
+            self._user_load_state_dict(state["user"])
+            self._record(prejoin_heals_total=1,
+                         heal_bytes_total=stats.get("bytes", 0.0))
+            self._log_event(event="prejoin_heal", step=self._step,
+                            fleet_step=fleet_step, donors=len(addrs),
+                            bytes=stats.get("bytes", 0.0))
+            logger.info("%s: pre-join heal adopted fleet step %d from %d "
+                        "donor(s) (%d bytes)", self._replica_id, self._step,
+                        len(addrs), int(stats.get("bytes", 0.0)))
+            return True
+        except Exception:  # noqa: BLE001 — backpressure is best-effort
+            logger.warning("%s: pre-join heal failed; falling back to the "
+                           "in-quorum heal", self._replica_id, exc_info=True)
+            return False
 
     # ------------------------------------------------------------- allreduce
 
@@ -1662,31 +2209,68 @@ class Manager:
             for key, delta in deltas.items():
                 self._metrics[key] += delta
 
+    def _churn_per_min_locked(self, now_mono: float) -> float:
+        """Ring reconfigures in the trailing 60 s (``_metrics_lock``
+        held): the ``reconfigures_per_min`` gauge."""
+        return float(sum(1 for t in self._reconfig_times
+                         if now_mono - t <= 60.0))
+
     def metrics(self) -> Dict[str, float]:
-        """Counters and cumulative stage timings (ms) of this manager."""
+        """Counters and cumulative stage timings (ms) of this manager,
+        with the attached durable writer's ``ckpt_save_*`` counters."""
         with self._metrics_lock:
             out = dict(self._metrics)
-        out["allreduce_ring_wire_bytes_total"] = float(
-            getattr(self._comm, "ring_bytes_total", lambda: 0.0)())
+            out["reconfigures_per_min"] = self._churn_per_min_locked(
+                time.monotonic())
+            pct = self._quorum_latency.percentiles()
+        out["quorum_ms_p50"] = pct["p50"]
+        out["quorum_ms_p95"] = pct["p95"]
+        out["quorum_ms_max"] = pct["max"]
+        # Lighthouse re-dials live in the C++ manager server, which owns
+        # the lighthouse connection.
+        out["lighthouse_redials"] = (
+            float(self._manager_server.lighthouse_redials())
+            if self._manager_server is not None else 0.0)
+        out.update(self._retry_stats.snapshot())
+        # The ring's own counters: bytes on the sockets (all, and the
+        # int8 rung's), the fold / transfer split, and the hierarchical
+        # transport's legs (0 on a flat ring). getattr: a scripted test
+        # communicator may have none of them.
+        for key, attr in (
+                ("allreduce_ring_wire_bytes_total", "ring_bytes_total"),
+                ("allreduce_int8_ring_bytes_total", "int8_ring_bytes_total"),
+                ("hier_intra_bytes_total", "hier_intra_bytes_total"),
+                ("hier_leader", "hier_leader")):
+            getter = getattr(self._comm, attr, None)
+            out[key] = float(getter()) if callable(getter) else 0.0
         split = getattr(self._comm, "ring_time_ms_total", dict)()
         out["allreduce_ring_fold_ms_total"] = float(split.get("fold", 0.0))
         out["allreduce_ring_transfer_ms_total"] = float(
             split.get("transfer", 0.0))
+        out.update(self._tracer.metrics())
         out.update(self._flight.metrics() if self._flight is not None
                    else {"flight_dumps_total": 0.0})
+        # The transport substrate's counters, process-wide.
+        out.update(transport.metrics())
+        if self._ckpt_writer is not None:
+            out.update(self._ckpt_writer.metrics())
         return out
 
     def metrics_info(self) -> Dict[str, str]:
         """String diagnostics, split from the numeric :meth:`metrics` at
         the source (the Prometheus exposition renders them as one
-        ``torchft_info`` label set): the policy in force, the newest
-        flight dump, the ring's topology and the fleet hint's
-        slowest-stage attribution of this group."""
+        ``torchft_info`` label set): the durable writer's last error,
+        the policy in force, the newest flight dump, the ring's topology
+        and the fleet hint's slowest-stage attribution of this group."""
         topo_fn = getattr(self._comm, "ring_topology", None)
         topo = topo_fn() if callable(topo_fn) else "flat"
         with self._metrics_lock:
             fleet_stage = self._fleet_stage
+        last_err = ""
+        if self._ckpt_writer is not None:
+            last_err = self._ckpt_writer.last_error() or ""
         return {
+            "ckpt_last_error": last_err,
             "policy_name": self._policy.name,
             "flight_last_path": (self._flight.last_path
                                  if self._flight is not None else ""),

@@ -52,6 +52,11 @@ _MAGIC = b"TFTPTREE"
 DEFAULT_CHUNK_BYTES = 8 * 1024 * 1024
 
 
+class LeafDigestMismatch(ValueError):
+    """A leaf's bytes failed crc32 verification against its manifest
+    digest — corrupt or torn data that must never reach the device."""
+
+
 _TORCH_NAMES = {
     torch.float32: "float32", torch.float64: "float64",
     torch.float16: "float16", torch.bfloat16: "bfloat16",
@@ -337,6 +342,12 @@ def _read_exact_into(fp: BinaryIO, mv: memoryview) -> None:
         got += n
 
 
+def _read_exact(fp: BinaryIO, n: int) -> bytes:
+    buf = bytearray(n)
+    _read_exact_into(fp, memoryview(buf))
+    return bytes(buf)
+
+
 def _match_entries(header: dict, target: Any):
     """Validate checkpoint entries against the flattened target: positional
     + name cross-check, array entries must meet an array target with equal
@@ -377,6 +388,65 @@ def _match_entries(header: dict, target: Any):
                 f"leaf is an array")
         pairs.append((entry, tleaf))
     return pairs, treedef
+
+
+def load_pytree_from(
+    fp: BinaryIO,
+    target: Any,
+    device_put_fn: Optional[Callable[[Any, Any], Any]] = None,
+    digests: Optional[List[int]] = None,
+) -> Any:
+    """Restore a pytree from a binary stream into the structure of
+    ``target``, one leaf at a time: each array leaf is read into a fresh
+    host buffer and handed to ``device_put_fn(leaf, target_leaf)``
+    (e.g. :func:`device_put_like`) before the next is read, so peak extra
+    host RAM is one leaf. Keys are matched positionally against the
+    flattened target and cross-checked by name.
+
+    ``digests``, when given, is the per-array-leaf crc32 list in body
+    order: every leaf is verified after its read and BEFORE
+    ``device_put_fn`` — corrupt bytes never reach the device — raising
+    :class:`LeafDigestMismatch` on the first mismatch."""
+    try:
+        magic = _read_exact(fp, len(_MAGIC))
+    except ValueError:
+        raise ValueError("not a torchft_tpu pytree checkpoint")
+    if magic != _MAGIC:
+        raise ValueError("not a torchft_tpu pytree checkpoint")
+    hdr_len = int.from_bytes(_read_exact(fp, 4), "little")
+    # Untrusted length: cap before allocating.
+    if hdr_len > 256 * 1024 * 1024:
+        raise ValueError(f"checkpoint header implausibly large ({hdr_len}B)")
+    header = json.loads(_read_exact(fp, hdr_len))
+
+    pairs, treedef = _match_entries(header, target)
+    digs = iter(digests) if digests is not None else None
+    out_leaves = []
+    for entry, tleaf in pairs:
+        if entry["kind"] == "py":
+            out_leaves.append(entry["value"])
+            continue
+        # Shape and dtype were checked against the target, so this
+        # allocation is exactly the target leaf's size.
+        arr = np.empty(entry["shape"], dtype=_carrier(entry["dtype"]))
+        mv = arr.reshape(-1).view(np.uint8).data
+        _read_exact_into(fp, mv)
+        if digs is not None:
+            try:
+                want = int(next(digs))
+            except StopIteration:
+                raise LeafDigestMismatch(
+                    f"digest list exhausted at leaf {entry['key']!r} — "
+                    "manifest does not cover this stream") from None
+            got = zlib.crc32(mv)
+            if got != want:
+                raise LeafDigestMismatch(
+                    f"leaf {entry['key']!r} failed digest verification "
+                    f"(crc32 {got:08x} != manifest {want:08x})")
+        leaf = _from_carrier(arr, entry["dtype"])
+        out_leaves.append(device_put_fn(leaf, tleaf)
+                          if device_put_fn is not None else leaf)
+    return tree_unflatten(treedef, out_leaves)
 
 
 def load_pytree(

@@ -35,8 +35,24 @@ tens of seconds at 7B widths).
 ``OVERLAP_STEPS=1`` runs the cross-step overlap engine: step N's
 allreduce drains under step N+1's forward and backward, and its vote and
 update land at the N+1 boundary (one-step-stale gradients); every group
-must set it alike. Durable checkpoints and elastic data are not ported
-yet. ``--device`` defaults to ``cuda``.
+must set it alike.
+
+Durable checkpoints: with ``CHECKPOINT_DIR``, each group keeps its own
+``CHECKPOINT_DIR/<group>`` and, at start, resumes from the newest file
+there that verifies and is committed (``checkpoint_io.recover``, which
+quarantines torn or corrupt files, then ``load``: trainer, loader and
+manager state). Every ``CHECKPOINT_EVERY`` (10) committed steps it saves
+through ``Manager.save_durable`` to an ``AsyncCheckpointer(keep=3)``: a
+snapshot on the card, the copy to the host and the write on the writer's
+thread. SIGTERM arms the graceful preemption drain: at the next clean
+commit boundary the group says farewell to the quorum, takes a final
+save of the same tree, withdraws its advertisements and exits 0
+(``"preempted": true``). The report then adds the resume (path, step,
+the state hash right after the load, recover and load wall), each save's
+dispatch ms on this thread and the snapshot's ms on the card, the
+writer's wall and bytes, the ``ckpt_*`` / ``preempt_*`` counters and
+the peak card memory. Elastic data is not ported yet. ``--device``
+defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -46,6 +62,7 @@ import hashlib
 import json
 import logging
 import os
+import signal
 import tempfile
 import time
 from typing import Any, Dict, Tuple
@@ -53,11 +70,11 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from torchft_tpu_torch import serialization
+from torchft_tpu_torch import checkpoint_io, serialization
 from torchft_tpu_torch.backends.host import HostCommunicator
 from torchft_tpu_torch.data import (DistributedSampler, StatefulLoader,
                                     TokenFileDataset)
-from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.manager import Manager, PreemptedExit
 from torchft_tpu_torch.models.transformer import (Transformer,
                                                   TransformerConfig,
                                                   chunked_causal_lm_loss,
@@ -88,6 +105,16 @@ def make_config() -> TransformerConfig:
 SDC_KEYS = ("sdc_digests_total", "sdc_digest_ms_total", "sdc_quarantined",
             "sdc_quarantines_total", "sdc_quarantine_clears_total",
             "sdc_reheals_total", "sdc_chaos_flips_total")
+# The durability plane's counters in the report: the writer's, the
+# recovery scan's (added to the manager's, which count only its own
+# cold_start) and the drain's.
+CKPT_KEYS = ("ckpt_save_count", "ckpt_save_errors", "ckpt_save_fatal",
+             "ckpt_save_stalls", "ckpt_save_bytes_total",
+             "ckpt_save_ms_total", "ckpt_corrupt_quarantined",
+             "ckpt_recover_fallbacks", "ckpt_recover_legacy",
+             "ckpt_cold_starts", "ckpt_save_skipped")
+PREEMPT_KEYS = ("preempt_notices_total", "preempt_drain_deferrals_total",
+                "preempt_deadline_expired_total", "graceful_exits_total")
 
 
 def state_hash(trainer: FTTrainer, fingerprint: bool = False
@@ -178,9 +205,83 @@ def main(argv: Any = None) -> None:
     report: Dict[str, Any] = {"group": replica_group, "seed": seed,
                               "overlap_steps": overlap, "losses": [],
                               "committed": [], "step_s": [], "hidden_ms": [],
-                              "drain_wait_ms": []}
+                              "drain_wait_ms": [], "saved": [],
+                              "ckpt_saves": [], "preempted": False}
+
+    # Durable checkpoints: one directory per group. recover(), not the
+    # newest name: the newest file may be torn or bit-rotted, and the scan
+    # quarantines it and falls back to the previous good one.
+    ckpt_dir = os.environ.get("CHECKPOINT_DIR")
+    ckpt_every = int(os.environ.get("CHECKPOINT_EVERY", 10))
+    group_dir = (os.path.join(ckpt_dir, str(replica_group)) if ckpt_dir
+                 else None)
+    recover_stats: Dict[str, float] = {}
+    if group_dir:
+        t_rec = time.perf_counter()
+        path = checkpoint_io.recover(group_dir, stats=recover_stats)
+        t_load = time.perf_counter()
+        if path:
+            user, mgr_state = checkpoint_io.load(path, target={
+                "trainer": trainer.state_dict(),
+                "loader": batches.state_dict()})
+            trainer.load_state_dict(user["trainer"])
+            batches.load_state_dict(user["loader"])
+            m.load_state_dict(mgr_state)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t_done = time.perf_counter()
+            report.update(
+                resumed_from=path, resumed_step=m.current_step(),
+                resumed_hash=state_hash(trainer)[0],
+                resume={"recover_ms": round((t_load - t_rec) * 1e3, 1),
+                        "load_ms": round((t_done - t_load) * 1e3, 1),
+                        "bytes": os.path.getsize(path)})
+            logger.info("resumed from %s at step %d", path,
+                        m.current_step())
+
+    ckpt_writer = (checkpoint_io.AsyncCheckpointer(keep=3) if group_dir
+                   else None)
+    # The loader's position after the last step: the drain's final save
+    # runs inside train_step, after the next batch was drawn.
+    loader_state = batches.state_dict()
+
+    def durable_user_state() -> Dict[str, Any]:
+        return {"trainer": trainer.state_dict(), "loader": loader_state}
+
+    if ckpt_writer is not None:
+        m.set_durable_target(ckpt_writer, group_dir,
+                             user_state_fn=durable_user_state)
+
+    # Each save's CUDA events (around the snapshot), read once done.
+    save_events: Dict[int, Any] = {}
+
+    def note_save(step: int, t0: float, ms0: float, events: Any,
+                  fut: Any) -> None:
+        """One save's record: its dispatch on this thread now; the
+        writer's wall (its counter's delta since ``ms0``) and the wall
+        until durable when the write lands; the snapshot's card time at
+        the next report."""
+        rec: Dict[str, Any] = {
+            "step": step, "dispatch_ms": round(
+                (time.perf_counter() - t0) * 1e3, 3)}
+
+        def done(f: Any) -> None:
+            rec["durable_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+            rec["write_ms"] = round(
+                ckpt_writer.metrics()["ckpt_save_ms_total"] - ms0, 1)
+            rec["ok"] = f.exception() is None
+
+        if events is not None:
+            save_events[len(report["ckpt_saves"])] = events
+        report["ckpt_saves"].append(rec)
+        fut.add_done_callback(done)
 
     def write_report(final: bool) -> None:
+        for i, ev in list(save_events.items()):
+            if ev[1].query():
+                report["ckpt_saves"][i]["snapshot_card_ms"] = round(
+                    ev[0].elapsed_time(ev[1]), 3)
+                del save_events[i]
         if not report_file:
             return
         mx = m.metrics()
@@ -195,6 +296,9 @@ def main(argv: Any = None) -> None:
             overlap_grads_dropped=int(mx["overlap_grads_dropped"]),
             heal_striped_donors=int(mx["heal_striped_donors"]),
             sdc={k: mx[k] for k in SDC_KEYS},
+            ckpt={k: mx.get(k, 0.0) + recover_stats.get(k, 0.0)
+                  for k in CKPT_KEYS},
+            preempt={k: mx[k] for k in PREEMPT_KEYS},
             state_digest=m._last_state_digest,
             sdc_events=[{"event": e["event"], "step": e["step"]}
                         for e in m.history()
@@ -202,7 +306,9 @@ def main(argv: Any = None) -> None:
             launches={**fa.LAUNCHES, **attest.LAUNCHES},
             params_on_cpu=sum(p.device.type == "cpu"
                               for p in trainer.params.values())
-            if device.type != "cpu" else 0)
+            if device.type != "cpu" else 0,
+            peak_card_bytes=(torch.cuda.max_memory_allocated(device)
+                             if device.type == "cuda" else 0))
         if final:
             report["state_hash"], host_digest = state_hash(trainer,
                                                            host_digest_check)
@@ -219,12 +325,49 @@ def main(argv: Any = None) -> None:
             json.dump(report, f)
         os.replace(tmp, report_file)
 
+    # The reclaim signal drains this run; the caller's handler is back
+    # once main returns (a caller that goes on must not ignore SIGTERM).
+    prev_sigterm = m.install_preemption_handler()
     try:
         while m.current_step() < total_steps:
             t0 = time.perf_counter()
-            loss, committed = trainer.train_step(next(batches))
+            try:
+                loss, committed = trainer.train_step(next(batches))
+            except PreemptedExit:
+                # The noticed-reclaim success path: farewell, final save
+                # and withdrawal are done, and the manager is shut down.
+                logger.info("gracefully preempted at step %d; exiting",
+                            m.current_step())
+                report["preempted"] = True
+                break
+            loader_state = batches.state_dict()
+            step = m.current_step()
+            saved = False
+            if ckpt_writer is not None and committed \
+                    and step % ckpt_every == 0:
+                # Overlap keeps one exchange in flight across the
+                # boundary, and save_durable refuses such a snapshot:
+                # settle it first.
+                trainer.flush()
+                # The dispatch includes waiting out the previous write.
+                ts = time.perf_counter()
+                ckpt_writer.wait()
+                ms0 = ckpt_writer.metrics()["ckpt_save_ms_total"]
+                events = None
+                if device.type == "cuda":
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    events[0].record()
+                fut = m.save_durable(ckpt_writer, group_dir,
+                                     user_state=durable_user_state())
+                if events is not None:
+                    events[1].record()
+                if fut is not None:
+                    note_save(step, ts, ms0, events, fut)
+                    saved = True
             report["losses"].append(float(loss))
             report["committed"].append(bool(committed))
+            report["saved"].append(saved)
             report["step_s"].append(round(time.perf_counter() - t0, 3))
             mx = m.metrics()
             report["hidden_ms"].append(
@@ -232,7 +375,7 @@ def main(argv: Any = None) -> None:
             report["drain_wait_ms"].append(
                 round(mx["allreduce_drain_wait_ms_total"], 1))
             logger.info("step=%d loss=%.4f committed=%s participants=%d "
-                        "timings=%s", m.current_step(), float(loss),
+                        "timings=%s", step, float(loss),
                         committed, m.num_participants(),
                         {k: round(v, 3)
                          for k, v in trainer.last_step_timings.items()})
@@ -243,17 +386,27 @@ def main(argv: Any = None) -> None:
                 logger.info("holding after step %d", m.current_step())
                 while True:
                     time.sleep(1)
-        # Overlap: the last step is still in flight; apply it before the
-        # final state hash.
-        trainer.flush()
-        logger.info("done: %d steps, %d batches committed",
-                    m.current_step(), m.batches_committed())
+        if not report["preempted"]:
+            # Overlap: the last step is still in flight; apply it before
+            # the final state hash.
+            trainer.flush()
+            logger.info("done: %d steps, %d batches committed",
+                        m.current_step(), m.batches_committed())
+        if ckpt_writer is not None:
+            # The last cadence save lands before the final report; a
+            # failed write raises here.
+            ckpt_writer.wait()
         write_report(final=True)
     finally:
+        signal.signal(signal.SIGTERM, prev_sigterm)
         try:
-            batches.shutdown()
+            if ckpt_writer is not None:
+                ckpt_writer.shutdown()
         finally:
-            trainer.shutdown()
+            try:
+                batches.shutdown()
+            finally:
+                trainer.shutdown()
 
 
 if __name__ == "__main__":
