@@ -3,7 +3,8 @@
     python3 chip_smoke.py                     # every phase, one card
     python3 chip_smoke.py --phases kernels,sp # a subset of card,kernels,
                                               # ft,split,sp,wire,overlap,
-                                              # shard,attest,durable
+                                              # shard,attest,durable,
+                                              # capacity
 
 Phases:
 
@@ -17,8 +18,9 @@ Phases:
    lacks HGMMA or UTMALDG.
 2. **kernels** — each of the four flash-attention kernels against its
    plain PyTorch version on the same inputs, at the slice's shape and at
-   GQA / non-causal / end-aligned / odd-length shapes, in the static mode
-   and in the ring's shift mode (shift Sk = full, 0 = causal, -Sk =
+   GQA / non-causal / end-aligned / odd-length shapes and at the capacity
+   phase's batch 8 x 2048 (static only), in the static mode and in the
+   ring's shift mode (shift Sk = full, 0 = causal, -Sk =
    blocked, and a partial shift at which every row sees a key, with a
    nonzero lse cotangent); times of kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick only, never called by the
@@ -35,10 +37,11 @@ Phases:
    (``ops.attest``) bitwise against its plain version and numpy's
    ``attest_fingerprint`` on leaves of f32, bf16, int64, bool and uint8
    at odd sizes, a misaligned view, a host scalar and a 131M-element f32
-   leaf, then its time on the ft cell's 8.003 GB state beside its bound.
+   leaf, then its time on a 2-layer 7B-width state (8.003 GB) beside its
+   bound.
 3. **ft** — the main path: a native lighthouse and two replica groups
    (``python -m torchft_tpu_torch.train_lm``) on this one card at Llama-2-7B
-   widths cut to 2 layers, batch 1 x 2048 tokens. Three steps, SIGKILL of
+   widths cut to 1 layer, batch 1 x 2048 tokens. Two steps, SIGKILL of
    group 1, restart with another init seed, heal from group 0 over HTTP,
    two more steps; then equal state hashes, committed post-heal steps,
    finite losses, kernel launches in both groups and no parameter on the
@@ -48,7 +51,7 @@ Phases:
    dk/dv kernels instead of the fused one.
 5. **sp** — the sequence-parallel path: two processes on this card form a
    gloo sp group (``chip_smoke.py --sp-worker``); each builds the same
-   Llama-2-7B-width 2-layer model with ring attention and takes three
+   Llama-2-7B-width 1-layer model with ring attention and takes two
    ``SPTrainer`` steps on one 4096-token sequence (2048 per rank), then
    one step at 256 tokens (128 per rank, fewer than 4 q tiles: the split
    backward's shift mode). Checks: equal parameter hashes on both ranks
@@ -59,7 +62,7 @@ Phases:
    4096-token inputs.
 6. **wire** — the manager's wire rungs: a lighthouse and two replica
    groups on this card (``chip_smoke.py --wire-worker``); each builds the
-   same Llama-2-7B-width 2-layer model with the flash kernels, computes
+   same Llama-2-7B-width 1-layer model with the flash kernels, computes
    its gradients of two steps on 1 x 2048 tokens from its own data seed
    and keeps them on the card, then reduces them with three ``Manager``
    allreduce + ``should_commit`` steps under each rung, a fresh Manager
@@ -75,17 +78,17 @@ Phases:
    f32's, and that the gradients, results and the int8 residual stay on
    the card.
 7. **overlap** — the ft phase's drill (same lighthouse, model, SIGKILL of
-   group 1 after step 3, restart and heal) with ``OVERLAP_STEPS=1``: each
+   group 1 after step 2, restart and heal) with ``OVERLAP_STEPS=1``: each
    step's exchange drains under the next step's forward and backward, so
-   the kill lands while group 1's step-3 exchange is in flight. Checks:
+   the kill lands while group 1's step-2 exchange is in flight. Checks:
    equal state hashes, the restarted group's steps all committed, group
    0's dropped deferred steps (``overlap_grads_dropped``) at least 1 and
    equal to its aborted steps, finite losses, kernel launches; logs each
    group's hidden and drain-wait ms per step.
 8. **shard** — the sharded update: a lighthouse and two groups on this
    card (``chip_smoke.py --shard-worker``), each with the wire cell's
-   model from one init seed. Each takes three ``FTTrainer`` steps with
-   the sync update on fixed batches, then the same three from the same
+   model from one init seed. Each takes two ``FTTrainer`` steps with
+   the sync update on fixed batches, then the same two from the same
    init params with a fresh ``Manager(shard_update=True)`` (AdamW with
    ``foreach`` pinned on both). The sharded run exchanges the gradients
    the sync run recorded at each step, after its own forward and
@@ -116,16 +119,16 @@ Phases:
    ``train_lm`` groups with ``CHECKPOINT_DIR`` and ``CHECKPOINT_EVERY=2``
    (``AsyncCheckpointer(keep=3)``, a snapshot on the card, the write on
    the writer's thread); the phase first checks the disk has the 48 GB
-   its files take. Run A (a lighthouse with ``min_replicas=1``, 6
-   steps): group 1 gets SIGTERM once its report shows step 3 and must
+   its files take. Run A (a lighthouse with ``min_replicas=1``, 4
+   steps): group 1 gets SIGTERM once its report shows step 2 and must
    drain — farewell, final save, exit 0 — with a graceful exit counted
    and no deadline expired, its newest file verified, committed and
    stamped with the step it drained at; group 0 must commit every step
-   across the departure (0 aborted) and finish step 6 alone. Run B: one
+   across the departure (0 aborted) and finish step 4 alone. Run B: one
    byte in the middle of group 1's newest file's payload is flipped, and
    two fresh groups start on the same directories under a lighthouse
-   with two members per quorum, to step 7: group 0 resumes at step 6 with
-   the state hash it ended run A with (8.003 GB through the disk,
+   with two members per quorum, to step 5: group 0 resumes at step 4 with
+   the state hash it ended run A with (5.57 GB through the disk,
    bitwise); group 1 quarantines the flipped file, falls back to an
    older one and heals from group 0 at the first quorum; both commit
    every step and end with equal hashes, finite losses and the flash
@@ -135,12 +138,50 @@ Phases:
    cold start's recover + load wall and MB/s, SIGTERM to exit, and the
    peak card memory.
 
+11. **capacity** — the participation plane: three ``chip_smoke.py
+   --capacity-worker`` groups at the ft cell's widths, each an
+   ``FTTrainer`` whose batch is an ``ElasticLoader`` (the draw follows
+   the quorum); the groups start from one init seed at step 1, so no
+   initial sync heals them. Run A (warm spares):
+   ``WorldSizeMode.FIXED_WITH_SPARES`` with ``min_replica_size=2`` under
+   a lighthouse with two members per quorum, batch 1 x 2048, steps 2-6;
+   after step 2 the group at participant rank 0 holds, is SIGKILLed and
+   restarts fresh with another seed; the survivors wait after step 4
+   until it is up. Checks: two participants at every committed step;
+   exactly one of three groups out of the fold at every step; the spare
+   promoted at step 3 without a heal, and the step committed; the
+   restarted group healed; the state digests equal at every step and
+   at the end (the attestation digest, on the card). Run B: ``degraded_mode`` and
+   ``rebalance``, three members per quorum, batch 8 x 2048, steps 2-6;
+   group 1 degrades to 0.5 at the step-2 boundary and restores at the
+   step-5 one; group 2 runs the chaos slow band (factor 2) at the step-3
+   boundary.
+   Checks: every draw is ``round(8 x capacity x rebalance)`` of the
+   fractions in force and the fold weight is the draw (0 while healing);
+   group 1 at 0.5 for steps 3-5, its degrade and restore counted once
+   and its capacity advertised on the quorum store; each group's adopted
+   rebalance fraction is its entry of the table published on the quorum
+   store at that boundary; the step-3 reduced tree bitwise across the
+   groups and within 1e-6 of the float64 weighted mean of the three
+   saved contributions; equal digests and final hashes; logs every
+   boundary's lighthouse table and digest walls, and whether the ladder
+   shrank the slow group.
+
+Depth: every phase runs Llama-2-7B widths (vocabulary 32000, embedding
+4096, 32 heads of 128, MLP 11008) cut to 1 layer (and the ft and overlap
+drills and the durable phase's run A to 4 steps, the capacity phase's
+runs to 5, the sp and shard phases to 2), so that the whole script
+stays inside its time limit. Every worker runs in a session of its own
+and dies with the script (``_popen``); a signal, or the script's own
+deadline (``DEADLINE_S``), fails the run and stops the workers still
+running.
+
 Each phase's wall is logged. Launch counts are reset just before each
 driven path and read just after it. The line before the last is a JSON
 object with one entry per kernel: ``launches`` counts the ft phase (and
 the split and sp phases for their kernels), ``launches_overlap``,
-``launches_shard``, ``launches_attest`` and ``launches_durable`` those
-paths' own launches;
+``launches_shard``, ``launches_attest``, ``launches_durable`` and
+``launches_capacity`` those paths' own launches;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. float32 matmuls are pinned to full precision
 (TF32 off) so the plain versions are exact references.
@@ -226,7 +267,12 @@ CASES = [
     ("d32", 2, 320, 320, 4, 2, 32, True),
     ("tile_edge", 1, 192, 192, 8, 8, 128, True),
     ("split", 1, 192, 192, 32, 32, 128, True),
+    # The capacity phase's run B: batch 8 (4 while degraded) at the
+    # slice's length, static mode only.
+    ("capacity", 8, 2048, 2048, 32, 32, 128, True),
 ]
+# Cases checked in the static mode alone.
+STATIC_ONLY = ("capacity",)
 # Split-kernel times at the lengths where the main path launches them:
 # case -> shift mode; "split" is the split phase's shape (static),
 # "sp_split" the sp short step's (shift = Sk).
@@ -247,6 +293,36 @@ def check(cond: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# Every worker starts through this stub: it asks the kernel to SIGKILL it
+# when this script dies (PR_SET_PDEATHSIG), however the script dies, then
+# becomes the worker's command. A worker runs in a session of its own (so
+# that a kill reaches its whole process group), where a signal sent to
+# this script's group would not reach it.
+_DIE_WITH_PARENT = (
+    "import ctypes, os, signal, sys; "
+    "ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL); "
+    "os.getppid() == int(sys.argv[1]) or os._exit(1); "
+    "os.execv(sys.argv[2], sys.argv[2:])")
+
+
+def _popen(argv: list, log_path: str, env: dict = None) -> subprocess.Popen:
+    """Starts ``argv`` (``sys.executable`` first) in a session of its own,
+    its output in ``log_path``; the worker dies with this script."""
+    with open(log_path, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-c", _DIE_WITH_PARENT, str(os.getpid()),
+             *argv], cwd=ROOT, env=env, stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _stop(procs: list) -> None:
+    """SIGKILLs the process group of every worker still running."""
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
 
 
 def card_line() -> str:
@@ -576,12 +652,12 @@ def _fused_determinism(q, k, v, do) -> dict:
 def _attest_state_leaves(gen: torch.Generator) -> list:
     """Leaves of the ft cell's committed state on the card, in its pytree
     order's shapes: the 2-layer 7B-width model's parameters and AdamW's
-    two moments of each (3 x 666,914,816 f32 = 8.003 GB), random."""
+    two moments of each (3 x 666,914,816 f32 = 8.003 GB, the state every
+    slice has timed the digest on), random."""
     from torchft_tpu_torch.models.transformer import (Transformer,
                                                       llama2_7b_config)
 
-    model = Transformer(llama2_7b_config(num_layers=WIRE_LAYERS),
-                        device="meta")
+    model = Transformer(llama2_7b_config(num_layers=2), device="meta")
     shapes = [p.shape for _, p in sorted(model.named_parameters())]
     return [torch.randn(sh, generator=gen, device="cuda")
             for sh in shapes for _ in range(3)]
@@ -662,8 +738,9 @@ def phase_kernels() -> dict:
         gen.manual_seed(i)
         q, k, v = rnd(b, s, h, d), rnd(b, sk, h_kv, d), rnd(b, sk, h_kv, d)
         do = rnd(b, s, h, d)
-        shift_args = {sh: _shift_check(rows, case, q, k, v, do, sh, gen)
-                      for sh in (sk, 0, -sk)}
+        shift_args = {} if case in STATIC_ONLY else {
+            sh: _shift_check(rows, case, q, k, v, do, sh, gen)
+            for sh in (sk, 0, -sk)}
         qh, kh, vh = fa.to_bh(q), fa.to_bh(k), fa.to_bh(v)
         o, lse = fa.flash_fwd(qh, kh, vh, h, h_kv, causal)
         o_p, lse_p = fa.fwd_plain(qh, kh, vh, h, h_kv, causal)
@@ -805,8 +882,8 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-# The slice: Llama-2-7B widths cut to 2 layers, batch 1 x 2048 tokens.
-FT_ENV = {"MODEL": "llama2_7b", "NUM_LAYERS": "2", "BATCH_SIZE": "1",
+# The slice: Llama-2-7B widths cut to 1 layer, batch 1 x 2048 tokens.
+FT_ENV = {"MODEL": "llama2_7b", "NUM_LAYERS": "1", "BATCH_SIZE": "1",
           "SEQ_LEN": "2048"}
 FT_ARGS: list = []
 
@@ -825,11 +902,9 @@ def _spawn(group: int, seed: int, lighthouse: str, workdir: str,
         INIT_SEED=str(seed), DATA_DIR=workdir, TORCHFT_HEAL_STALL_SEC="120",
         REPORT_FILE=os.path.join(workdir, f"report_{group}_{seed}.json"),
         PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""))
-    log_path = os.path.join(workdir, f"group_{group}_{seed}.log")
-    return subprocess.Popen(
+    return _popen(
         [sys.executable, "-m", "torchft_tpu_torch.train_lm", *FT_ARGS],
-        cwd=ROOT, env=env, stdout=open(log_path, "w"),
-        stderr=subprocess.STDOUT, start_new_session=True)
+        os.path.join(workdir, f"group_{group}_{seed}.log"), env=env)
 
 
 def _wait_report(proc: subprocess.Popen, workdir: str, group: int,
@@ -873,9 +948,9 @@ def _wait(proc: subprocess.Popen, timeout: float, what: str) -> None:
 
 def _kill_and_heal(procs: list, tag: str, extra: dict) -> tuple:
     """Two ``train_lm`` groups under a lighthouse with its defaults (two
-    members per quorum): group 1 holds after its third step and is
+    members per quorum): group 1 holds after its second step and is
     SIGKILLed, a new group 1 with another init seed heals from group 0,
-    and both run to step 5. Returns both groups' final reports."""
+    and both run to step 4. Returns both groups' final reports."""
     from torchft_tpu_torch._native import Lighthouse
 
     workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
@@ -884,19 +959,19 @@ def _kill_and_heal(procs: list, tag: str, extra: dict) -> tuple:
     lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=2,
                     join_timeout_ms=2000, quorum_tick_ms=50)
     addr = lh.address()
-    total = 5
+    total = 4
     try:
         t0 = time.perf_counter()
         g0 = _spawn(0, 0, addr, workdir, total, extra=extra)
-        # Group 1 holds after its third step: group 0 then waits in the
+        # Group 1 holds after its second step: group 0 then waits in the
         # next quorum round (two members per quorum) until the kill. Under
         # overlap the held step's exchange is still in flight.
-        g1 = _spawn(1, 1, addr, workdir, total, hold=3, extra=extra)
+        g1 = _spawn(1, 1, addr, workdir, total, hold=2, extra=extra)
         procs += [g0, g1]
         _wait_report(g1, workdir, 1, 1, [g0], _held, "its held step")
         os.killpg(g1.pid, signal.SIGKILL)
         g1.wait()
-        log(f"{tag}: SIGKILLed group 1 after step 3 "
+        log(f"{tag}: SIGKILLed group 1 after step 2 "
             f"({time.perf_counter() - t0:.1f} s)")
         g1b = _spawn(1, 7, addr, workdir, total, extra=extra)
         procs.append(g1b)
@@ -1111,11 +1186,11 @@ def phase_attest(procs: list) -> dict:
 # of group 1's newest file flipped, two fresh groups on the same
 # directories under a lighthouse with two members per quorum.
 DURABLE_EVERY = 2
-DURABLE_STEPS_A = 6
-DURABLE_SIGTERM_AT = 3
-DURABLE_STEPS_B = 7
-# Group 0 keeps 3 files, group 1 2, plus a file being written: about
-# 6 x 8.003 GB at the ft cell's widths.
+DURABLE_STEPS_A = 4
+DURABLE_SIGTERM_AT = 2
+DURABLE_STEPS_B = 5
+# Run A writes two files per group, 5.57 GB each at the ft cell's
+# widths; the check keeps room for eight.
 DURABLE_DISK_BYTES = 48e9
 
 
@@ -1325,13 +1400,13 @@ def phase_split() -> dict:
 # ------------------------------------------------------------ phase 5
 
 
-# The sp cell: Llama-2-7B widths cut to 2 layers, one sequence of 4096
+# The sp cell: Llama-2-7B widths cut to 1 layer, one sequence of 4096
 # tokens (Llama-2's max_seq_len), 2048 per rank; SP_STEPS steps, then one
 # at SP_SHORT_SEQ tokens (128 per rank, fewer than 4 q tiles) for the split
 # backward.
-SP_LAYERS = 2
+SP_LAYERS = 1
 SP_SEQ = 4096
-SP_STEPS = 3
+SP_STEPS = 2
 SP_SHORT_SEQ = 256
 
 
@@ -1463,13 +1538,11 @@ def phase_sp(procs: list) -> dict:
     t0 = time.perf_counter()
     ranks = []
     for rank in range(2):
-        log_path = os.path.join(workdir, f"sp_rank_{rank}.log")
-        ranks.append(subprocess.Popen(
+        ranks.append(_popen(
             [sys.executable, os.path.abspath(__file__), "--sp-worker",
              str(rank), "--sp-init", init, "--sp-report",
              os.path.join(workdir, f"sp_{rank}.json")],
-            cwd=ROOT, stdout=open(log_path, "w"), stderr=subprocess.STDOUT,
-            start_new_session=True))
+            os.path.join(workdir, f"sp_rank_{rank}.log")))
     procs += ranks
     try:
         for rank, proc in enumerate(ranks):
@@ -1550,10 +1623,10 @@ def phase_sp(procs: list) -> dict:
 # ------------------------------------------------------------ phase 6
 
 
-# The wire cell: Llama-2-7B widths cut to 2 layers; each group's gradients
+# The wire cell: Llama-2-7B widths cut to 1 layer; each group's gradients
 # of WIRE_STEPS steps on 1 x WIRE_SEQ tokens, computed once and kept on the
 # card, then reduced under each rung by a fresh Manager.
-WIRE_LAYERS = 2
+WIRE_LAYERS = 1
 WIRE_SEQ = 2048
 WIRE_STEPS = 2  # step 2 folds step 1's int8 residual
 WIRE_RUNGS = ("f32", "bf16", "int8_device", "int8_host")
@@ -1769,13 +1842,11 @@ def phase_wire(procs: list) -> dict:
     workers = []
     try:
         for group in range(2):
-            log_path = os.path.join(workdir, f"wire_group_{group}.log")
-            workers.append(subprocess.Popen(
+            workers.append(_popen(
                 [sys.executable, os.path.abspath(__file__), "--wire-worker",
                  str(group), "--wire-lighthouse", lh.address(),
                  "--wire-report", os.path.join(workdir, f"wire_{group}.json")],
-                cwd=ROOT, stdout=open(log_path, "w"),
-                stderr=subprocess.STDOUT, start_new_session=True))
+                os.path.join(workdir, f"wire_group_{group}.log")))
         procs += workers
         for group, proc in enumerate(workers):
             _wait(proc, 900, f"wire group {group}")
@@ -1879,10 +1950,10 @@ def phase_wire(procs: list) -> dict:
 # ------------------------------------------------------------ phase 8
 
 
-# The shard cell: the wire cell's model (Llama-2-7B widths, 2 layers) and
+# The shard cell: the wire cell's model (Llama-2-7B widths, 1 layer) and
 # batch (1 x 2048), AdamW at train_lm's hyperparameters with foreach pinned
 # on both paths, SHARD_STEPS steps per path.
-SHARD_STEPS = 3
+SHARD_STEPS = 2
 # Stripe state against the full AdamW state: 1/2 at world 2, within the
 # chunk rounding of one element per chunk and the step counters.
 SHARD_STATE_RATIO = (0.49, 0.51)
@@ -2051,14 +2122,12 @@ def phase_shard(procs: list) -> dict:
     workers = []
     try:
         for group in range(2):
-            log_path = os.path.join(workdir, f"shard_group_{group}.log")
-            workers.append(subprocess.Popen(
+            workers.append(_popen(
                 [sys.executable, os.path.abspath(__file__), "--shard-worker",
                  str(group), "--shard-lighthouse", lh.address(),
                  "--shard-report",
                  os.path.join(workdir, f"shard_{group}.json")],
-                cwd=ROOT, stdout=open(log_path, "w"),
-                stderr=subprocess.STDOUT, start_new_session=True))
+                os.path.join(workdir, f"shard_group_{group}.log")))
         procs += workers
         for group, proc in enumerate(workers):
             _wait(proc, 900, f"shard group {group}")
@@ -2138,7 +2207,610 @@ def phase_shard(procs: list) -> dict:
     return {"launches": launches, "reports": reps}
 
 
+# ------------------------------------------------------------ capacity
+
+# The capacity cell: the ft cell's model in three chip_smoke.py
+# --capacity-worker groups, each an FTTrainer with an ElasticLoader.
+# Both runs' groups start from one init seed at step 1 (the first step
+# is step 2), so no initial weight sync heals them; run A's restarted
+# group starts fresh and heals.
+# Run A (warm spares): min_replica_size 2 under FIXED_WITH_SPARES and a
+# lighthouse with two members per quorum, batch 1 x CAPACITY_SEQ, to step
+# CAPACITY_STEPS_A; after step CAPACITY_HOLD_A the group at participant
+# rank 0 holds, is SIGKILLed and restarts with another seed.
+# Run B (degraded capacity, rebalance, elastic draws): degraded_mode and
+# rebalance, three members per quorum, batch CAPACITY_BATCH x
+# CAPACITY_SEQ, to step CAPACITY_STEPS_B; group 1 degrades to
+# CAPACITY_FRACTION at the step-CAPACITY_DEGRADE_AT boundary and restores
+# at the step-CAPACITY_RESTORE_AT one; group 2 runs the chaos slow band
+# at one boundary, step CAPACITY_SLOW_FROM's (it doubles a step the whole
+# ring waits for); at step CAPACITY_FOLD_STEP every group
+# saves its float32 contribution and weight (and group 0 its reduced
+# tree) for the float64 check of the weighted fold.
+CAPACITY_LAYERS = 1
+CAPACITY_SEQ = WIRE_SEQ
+CAPACITY_STEPS_A = 6
+CAPACITY_HOLD_A = 2
+# Run A's survivors wait after this step until the restarted group is up,
+# so that it joins and heals before they finish.
+CAPACITY_GATE_A = 4
+CAPACITY_STEPS_B = 6
+# Init seeds: run A's groups, its restarted group, run B's groups.
+CAPACITY_SEED_A, CAPACITY_SEED_RESTART, CAPACITY_SEED_B = 0, 7, 10
+CAPACITY_BATCH = 8
+CAPACITY_FRACTION = 0.5
+CAPACITY_DEGRADE_AT = 2
+CAPACITY_RESTORE_AT = 5
+CAPACITY_SLOW_FROM = 3
+CAPACITY_SLOW = "seed=3;slow:slow_rate=1.0,slow_factor=2.0,max_faults=1"
+CAPACITY_FOLD_STEP = 3
+# The reduced tree against sum(w g) / sum(w) in float64, max abs error
+# over max abs reference: a float32 fold of three weighted terms.
+CAPACITY_FOLD_REL = 1e-6
+# Three contributions and one reduced tree of 2.67 GB each.
+CAPACITY_DISK_BYTES = 12e9
+# Windows of CAPACITY_SEQ tokens in the phase's token file, and the
+# model's vocabulary.
+CAPACITY_WINDOWS = 512
+CAPACITY_VOCAB = 32_000
+
+
+def _capacity_draws(batch: int, frac: float) -> int:
+    """``ElasticSampler``'s draw size at ``frac`` (no epoch edge)."""
+    if abs(frac - 1.0) <= 1e-9:
+        return batch
+    return max(1, int(round(batch * frac)))
+
+
+def _write_json(path: str, obj: dict) -> None:
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+class _RecordingStore:
+    """The Manager's quorum-store client, recording each value it reads
+    under ``key`` (the table the rebalance adoption read)."""
+
+    def __init__(self, inner: object, key: str) -> None:
+        self.inner, self.key, self.reads = inner, key, []
+
+    def get(self, key: str, *args, **kw):
+        value = self.inner.get(key, *args, **kw)
+        if key == self.key:
+            self.reads.append(value.decode())
+        return value
+
+    def __getattr__(self, name: str):
+        return getattr(self.inner, name)
+
+
+def capacity_worker(group: int, run: str, seed: int, lighthouse: str,
+                    workdir: str, report: str, hold: int, gate: int,
+                    preset: bool) -> int:
+    """One replica group of the capacity phase (run as ``chip_smoke.py
+    --capacity-worker``): an ``FTTrainer`` over the ft cell's model with
+    this run's ``Manager`` arguments and an ``ElasticLoader`` passed as
+    the batch, so each step's draw follows the quorum. Writes one row per
+    step to ``report``: the draw (samples, slot, fractions, fold weight,
+    participation), the vote, the wall, the heal count, the state digest
+    pushed at the boundary and, in run B, the rebalance table read from
+    the quorum store, the capacity advertisement and the lighthouse's
+    view. With ``preset``, the group starts at step 1 (its first step
+    is step 2, which no initial sync heals); with ``hold``, the group at
+    participant rank 0 after that step waits to be killed; with ``gate``,
+    the group waits after that step until the phase creates
+    ``<workdir>/gate``. The final state hash is the attestation digest
+    of the trainer's state, computed on the card."""
+    if not torch.cuda.is_available():
+        raise SmokeError("the capacity worker needs a CUDA device")
+    from concurrent.futures import Future
+
+    from torchft_tpu_torch import WorldSizeMode
+    from torchft_tpu_torch import chaos, serialization
+    from torchft_tpu_torch.backends.host import HostCommunicator
+    from torchft_tpu_torch.data import (ElasticLoader, ElasticSampler,
+                                        TokenFileDataset)
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models.transformer import (
+        Transformer, chunked_causal_lm_loss, llama2_7b_config)
+    from torchft_tpu_torch.ops import attest
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.step import FTTrainer
+    from torchft_tpu_torch.utils import tree_flatten
+
+    a = run == "a"
+    total = CAPACITY_STEPS_A if a else CAPACITY_STEPS_B
+    batch = 1 if a else CAPACITY_BATCH
+    cfg = llama2_7b_config(num_layers=CAPACITY_LAYERS,
+                           attention_fn=fa.flash_attention, remat=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    mode = (dict(world_size_mode=WorldSizeMode.FIXED_WITH_SPARES) if a
+            else dict(degraded_mode=True, rebalance=True))
+
+    def loss_fn(m, b):
+        tokens = b["tokens"]
+        return chunked_causal_lm_loss(m(tokens, return_hidden=True),
+                                      m.lm_head_kernel(), tokens)
+
+    trainer = FTTrainer(
+        model=model, loss_fn=loss_fn,
+        optimizer=torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                    weight_decay=1e-4, eps=1e-8),
+        manager_factory=lambda load, save: Manager(
+            comm=HostCommunicator(), load_state_dict=load,
+            state_dict=save, min_replica_size=2,
+            replica_id=f"capacity_{run}_{group}",
+            lighthouse_addr=lighthouse, rank=0, world_size=1, **mode))
+    m = trainer.manager
+    if preset:
+        m.load_state_dict({"step": 1, "batches_committed": 0})
+    dataset = TokenFileDataset(os.path.join(workdir, "tokens.npy"),
+                               seq_len=CAPACITY_SEQ)
+    loader = ElasticLoader(dataset, ElasticSampler(
+        len(dataset), m, batch_size=batch, seed=0), prefetch=2,
+        device="cuda")
+    cur: dict = {}
+    recorder: list = []
+
+    def draw():
+        b = loader()
+        rank, committed, frac = m.participant_slot()
+        if not a and not recorder and m._healset_store is not None:
+            # The quorum round has run: its store client exists.
+            addr, inner = m._healset_store
+            recorder.append(_RecordingStore(inner, "torchft/rebalance"))
+            m._healset_store = (addr, recorder[0])
+        cur.update(samples=int(b["tokens"].shape[0]),
+                   slot=committed + (rank or 0), frac=frac,
+                   capacity=m.capacity_fraction(),
+                   rebalance=m.rebalance_fraction(),
+                   weight=m._wire_weight(),
+                   participating=m.is_participating(),
+                   participants=m.num_participants())
+        return b
+
+    own_exchange = trainer._exchange
+
+    def exchange(grads):
+        if a or m.current_step() != CAPACITY_FOLD_STEP:
+            return own_exchange(grads)
+        torch.save({"weight": cur["weight"],
+                    "grads": {n: g.detach().float().cpu()
+                              for n, g in grads.items()}},
+                   os.path.join(workdir, f"contrib_{group}.pt"))
+        res = own_exchange(grads).result()
+        cur["fold_hash"] = _tree_hash(res)
+        if group == 0:
+            torch.save({n: t.detach().cpu() for n, t in res.items()},
+                       os.path.join(workdir, "reduced.pt"))
+        done: Future = Future()
+        done.set_result(res)
+        return done
+
+    trainer._exchange = exchange
+    out = {"group": group, "run": run, "seed": seed,
+           "replica_id": m.replica_id(), "steps": []}
+    fa.reset_launches()
+    attest.reset_launches()
+    _write_json(report, out)  # up: the phase may open the gate
+    committed = False
+    slow = False
+    try:
+        while m.current_step() < total:
+            step = m.current_step()
+            if not a and group == 1 and committed:
+                if step >= CAPACITY_DEGRADE_AT and "degraded_at" not in out \
+                        and m.request_degrade(CAPACITY_FRACTION):
+                    out["degraded_at"] = step
+                elif step >= CAPACITY_RESTORE_AT and "degraded_at" in out \
+                        and "restored_at" not in out \
+                        and m.request_restore():
+                    out["restored_at"] = step
+            if not a and group == 2 and not slow \
+                    and step >= CAPACITY_SLOW_FROM - 1:
+                chaos.install(chaos.parse_spec(CAPACITY_SLOW))
+                slow = True
+            cur.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, committed = trainer.train_step(draw)
+            torch.cuda.synchronize()
+            mx = m.metrics()
+            row = {"step": m.current_step(), "loss": float(loss),
+                   "committed": committed,
+                   "wall_s": time.perf_counter() - t0, **cur,
+                   "heal_count": mx["heal_count"],
+                   "digest": m._last_state_digest,
+                   "timings": dict(trainer.last_step_timings),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            if not a:
+                store = m._store_client((m._policy_round or ("",))[0])
+
+                def read(key: str) -> str:
+                    try:
+                        return store.get(key, timeout_ms=2000).decode()
+                    except Exception as e:  # noqa: BLE001 — logged, checked
+                        return f"unread: {e!r}"
+
+                row.update(rebalance_after=m.rebalance_fraction(),
+                           adoptions=mx["rebalance_adoptions_total"],
+                           deferred=mx["rebalance_deferred_total"],
+                           table_read=(recorder[0].reads[-1]
+                                       if recorder and recorder[0].reads
+                                       else ""))
+                if group == 1:
+                    row["capacity_key"] = read(
+                        f"torchft/capacity/{m._last_round_facts[1]}")
+                if group == 0:
+                    st = _fleet_status(lighthouse)
+                    row["fleet_table"] = st["fleet"]["rebalance_table"]
+                    row["fleet_walls"] = {
+                        g["replica_id"]: [g["step"], g["step_wall_ms"],
+                                          g["rebalance_fraction"],
+                                          g["straggler_score"]]
+                        for g in st["groups"]}
+            out["steps"].append(row)
+            log(f"capacity[{run}{group}] " + json.dumps(
+                {k: v for k, v in row.items() if k != "fleet_walls"}))
+            _write_json(report, out)
+            if hold and m.current_step() == hold and committed \
+                    and m.participant_rank() == 0:
+                out["held"] = True
+                _write_json(report, out)
+                log(f"capacity[{run}{group}] holding after step {hold}")
+                while True:
+                    time.sleep(1)
+            if gate and m.current_step() == gate and committed:
+                while not os.path.exists(os.path.join(workdir, "gate")):
+                    time.sleep(0.05)
+        mx = m.metrics()
+        out["launches"] = {**fa.LAUNCHES, **attest.LAUNCHES}
+        leaves = [t for t in tree_flatten(trainer.state_dict())[0]
+                  if isinstance(t, torch.Tensor) and t.numel()]
+        out.update(
+            state_hash=serialization.attest_combine(
+                attest.attest_words(leaves)),
+            metrics={k: mx[k] for k in (
+                "heal_count", "committed_steps", "aborted_steps",
+                "degrade_events_total", "restore_events_total",
+                "rebalance_adoptions_total", "rebalance_deferred_total")},
+            events=[{"event": e["event"], "step": e["step"]}
+                    for e in m.history()],
+            prefetch={"hits": loader.prefetch_hits,
+                      "misses": loader.prefetch_misses},
+            params_on_cpu=sum(p.device.type == "cpu"
+                              for p in trainer.params.values()))
+        _write_json(report, out)
+    finally:
+        chaos.reset()
+        loader.shutdown()
+        trainer.shutdown()
+    return 0
+
+
+def _spawn_capacity(group: int, run: str, seed: int, lighthouse: str,
+                    workdir: str, hold: int = 0, gate: int = 0,
+                    preset: bool = True) -> subprocess.Popen:
+    return _popen(
+        [sys.executable, os.path.abspath(__file__), "--capacity-worker",
+         str(group), "--capacity-run", run, "--capacity-seed", str(seed),
+         "--capacity-lighthouse", lighthouse, "--capacity-dir", workdir,
+         "--capacity-hold", str(hold), "--capacity-gate", str(gate),
+         *(["--capacity-preset"] if preset else [])],
+        os.path.join(workdir, f"capacity_{run}_{group}_{seed}.log"))
+
+
+def _capacity_report(workdir: str, run: str, group: int, seed: int
+                     ) -> dict:
+    path = os.path.join(workdir, f"capacity_{run}_{group}_{seed}.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        try:
+            return json.load(f)
+        except json.JSONDecodeError:
+            return {}
+
+
+def _row(rep: dict, step: int) -> dict:
+    """The last row of ``rep`` at ``step`` (an aborted step is retried
+    under the same number)."""
+    return [s for s in rep["steps"] if s["step"] == step][-1]
+
+
+def _wait_capacity(proc: subprocess.Popen, workdir: str, run: str,
+                   group: int, seed: int) -> None:
+    """Until the worker has written its first report (it is up)."""
+    deadline = time.time() + 600
+    while not _capacity_report(workdir, run, group, seed):
+        check(proc.poll() is None and time.time() < deadline,
+              f"capacity {run}: worker {group} (seed {seed}) never came up")
+        time.sleep(0.05)
+
+
+def _capacity_finite(reps: list, tag: str) -> None:
+    for r in reps:
+        check(all(x == x and abs(x) != float("inf")
+                  for x in (s["loss"] for s in r["steps"])),
+              f"{tag}: group {r['group']}: non-finite loss")
+        check(r["params_on_cpu"] == 0,
+              f"{tag}: group {r['group']}: parameters left on the CPU")
+
+
+def _capacity_digests_equal(reps: list, tag: str) -> None:
+    """At every step, every group that pushed a digest pushed the same
+    one: the state (params and AdamW state) fingerprinted on the card."""
+    by_step: dict = {}
+    for r in reps:
+        for s in r["steps"]:
+            if s["committed"] and s["digest"]:
+                by_step.setdefault(s["step"], set()).add(s["digest"])
+    for step, digests in sorted(by_step.items()):
+        check(len(digests) == 1,
+              f"{tag}: step {step}: groups' state digests differ "
+              f"({sorted(digests)})")
+
+
+def _capacity_run_a(procs: list, workdir: str) -> list:
+    from torchft_tpu_torch._native import Lighthouse
+
+    lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=2,
+                    join_timeout_ms=2000, quorum_tick_ms=50)
+    addr = lh.address()
+    try:
+        t0 = time.perf_counter()
+        ws = {g: _spawn_capacity(g, "a", CAPACITY_SEED_A, addr, workdir,
+                                 hold=CAPACITY_HOLD_A, gate=CAPACITY_GATE_A)
+              for g in range(3)}
+        procs += list(ws.values())
+        deadline = time.time() + 600
+        held = None
+        while held is None:
+            check(time.time() < deadline, "capacity A: no group held")
+            for g, p in ws.items():
+                check(p.poll() is None,
+                      f"capacity A: group {g} exited before the hold")
+                if _capacity_report(workdir, "a", g,
+                                    CAPACITY_SEED_A).get("held"):
+                    held = g
+            time.sleep(0.05)
+        os.killpg(ws[held].pid, signal.SIGKILL)
+        ws[held].wait()
+        log(f"capacity A: SIGKILLed group {held} (participant rank 0) "
+            f"after step {CAPACITY_HOLD_A} ({time.perf_counter() - t0:.1f}"
+            " s)")
+        restarted = _spawn_capacity(held, "a", CAPACITY_SEED_RESTART,
+                                    addr, workdir, preset=False)
+        procs.append(restarted)
+        # The survivors wait after step CAPACITY_GATE_A until the
+        # restarted group is up, so it joins and heals before they end.
+        _wait_capacity(restarted, workdir, "a", held, CAPACITY_SEED_RESTART)
+        open(os.path.join(workdir, "gate"), "w").close()
+        for g, p in ws.items():
+            if g != held:
+                _wait(p, 900, f"capacity A group {g}")
+        _wait(restarted, 900, f"capacity A restarted group {held}")
+        log(f"capacity A: {time.perf_counter() - t0:.1f} s")
+    finally:
+        lh.shutdown()
+    live = [_capacity_report(workdir, "a", g, CAPACITY_SEED_A)
+            for g in range(3) if g != held]
+    killed = _capacity_report(workdir, "a", held, CAPACITY_SEED_A)
+    back = _capacity_report(workdir, "a", held, CAPACITY_SEED_RESTART)
+    for r in (*live, killed, back):
+        log(f"capacity A: group {r['group']} (seed {r['seed']}) walls "
+            f"{[round(s['wall_s'], 2) for s in r['steps']]} participating "
+            f"{[(s['step'], s['participating']) for s in r['steps']]} "
+            f"heal_count {r['steps'][-1]['heal_count'] if r['steps'] else 0}"
+            f" peak_GB {max(s['peak_bytes'] for s in r['steps']) / 1e9:.2f}"
+            f" hash {r.get('state_hash', '')[:16]}")
+    # Steps every live process took part in: (group, seed) -> row.
+    rows: dict = {}
+    for r in (*live, killed, back):
+        for s in r["steps"]:
+            rows.setdefault(s["step"], {})[(r["group"], r["seed"])] = s
+    spare = [r["group"] for r in live
+             if not _row(r, CAPACITY_HOLD_A)["participating"]]
+    check(len(spare) == 1
+          and _row(killed, CAPACITY_HOLD_A)["participating"],
+          f"capacity A: the spare at step {CAPACITY_HOLD_A} is not one "
+          f"live group ({spare})")
+    for step, by in sorted(rows.items()):
+        for who, s in by.items():
+            check(not s["committed"] or s["participants"] == 2,
+                  f"capacity A: step {step}: group {who} counted "
+                  f"{s['participants']} participants")
+        if len(by) == 3:
+            out = [who for who, s in by.items() if not s["participating"]]
+            check(len(out) == 1, f"capacity A: step {step}: {len(out)} "
+                  "groups of three sat out, expected exactly one")
+    promoted = next(r for r in live if r["group"] == spare[0])
+    nxt = _row(promoted, CAPACITY_HOLD_A + 1)
+    before = _row(promoted, CAPACITY_HOLD_A)
+    check(nxt["participating"] and nxt["committed"]
+          and nxt["heal_count"] == before["heal_count"],
+          f"capacity A: the spare (group {spare[0]}) was not promoted "
+          f"without a heal at step {nxt['step']}: {nxt}")
+    check(back["metrics"]["heal_count"] >= 1,
+          "capacity A: the restarted group never healed")
+    reps = [*live, back]
+    _capacity_digests_equal([*reps, killed], "capacity A")
+    check(len({r["state_hash"] for r in reps}) == 1,
+          "capacity A: groups ended with different state")
+    _capacity_finite(reps, "capacity A")
+    walls = {r["group"]: [round(s["wall_s"], 3) for s in r["steps"]]
+             for r in live}
+    log(f"capacity A: promotion at step {nxt['step']}: walls around it "
+        f"{walls}")
+    return reps
+
+
+def _capacity_fold_check(workdir: str, reps: list) -> None:
+    """The step-CAPACITY_FOLD_STEP reduced tree, bitwise across groups,
+    against sum(w g) / sum(w) in float64 on the card."""
+    hashes = {r["group"]: next(s["fold_hash"] for s in r["steps"]
+                               if s["step"] == CAPACITY_FOLD_STEP)
+              for r in reps}
+    check(len(set(hashes.values())) == 1,
+          f"capacity B: step {CAPACITY_FOLD_STEP}'s reduced trees differ "
+          f"across groups ({hashes})")
+    contribs = [torch.load(os.path.join(workdir, f"contrib_{g}.pt"),
+                           mmap=True) for g in range(3)]
+    reduced = torch.load(os.path.join(workdir, "reduced.pt"), mmap=True)
+    weights = [c["weight"] for c in contribs]
+    check(all(w > 0 for w in weights),
+          f"capacity B: a zero fold weight at step {CAPACITY_FOLD_STEP}: "
+          f"{weights}")
+    err = ref_max = 0.0
+    for n, got in reduced.items():
+        acc = torch.zeros(got.shape, dtype=torch.float64, device="cuda")
+        for w, c in zip(weights, contribs):
+            acc += float(w) * c["grads"][n].to("cuda", torch.float64)
+        acc /= float(sum(weights))
+        err = max(err, float((got.to("cuda", torch.float64) - acc)
+                             .abs().max()))
+        ref_max = max(ref_max, float(acc.abs().max()))
+        del acc
+    rel = err / max(ref_max, 1e-30)
+    log(f"capacity B: step {CAPACITY_FOLD_STEP} fold weights {weights}, "
+        f"reduced tree against the float64 weighted mean: max abs "
+        f"{err:.3e}, rel {rel:.3e} (limit {CAPACITY_FOLD_REL})")
+    check(rel <= CAPACITY_FOLD_REL,
+          f"capacity B: weighted fold off the float64 mean by {rel:.3e}")
+
+
+def _capacity_run_b(procs: list, workdir: str) -> list:
+    from torchft_tpu_torch import fleet
+    from torchft_tpu_torch._native import Lighthouse
+
+    lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=3,
+                    join_timeout_ms=2000, quorum_tick_ms=50)
+    try:
+        t0 = time.perf_counter()
+        ws = [_spawn_capacity(g, "b", CAPACITY_SEED_B, lh.address(), workdir)
+              for g in range(3)]
+        procs += ws
+        for g, p in enumerate(ws):
+            _wait(p, 900, f"capacity B group {g}")
+        log(f"capacity B: {time.perf_counter() - t0:.1f} s")
+    finally:
+        lh.shutdown()
+    reps = [_capacity_report(workdir, "b", g, CAPACITY_SEED_B)
+            for g in range(3)]
+    for r in reps:
+        log(f"capacity B: group {r['group']} walls "
+            f"{[round(s['wall_s'], 2) for s in r['steps']]} samples "
+            f"{[s['samples'] for s in r['steps']]} weights "
+            f"{[s['weight'] for s in r['steps']]} capacity "
+            f"{[s['capacity'] for s in r['steps']]} rebalance "
+            f"{[s['rebalance_after'] for s in r['steps']]} peak_GB "
+            f"{max(s['peak_bytes'] for s in r['steps']) / 1e9:.2f} "
+            f"metrics {r['metrics']} prefetch {r['prefetch']}")
+    for s in reps[0]["steps"]:
+        log(f"capacity B: step {s['step']} lighthouse table "
+            f"{s['fleet_table']!r} digest walls {s['fleet_walls']}")
+    for r in reps:
+        rid = r["replica_id"]
+        for s in r["steps"]:
+            where = f"capacity B: group {r['group']} step {s['step']}"
+            want = _capacity_draws(CAPACITY_BATCH, s["frac"])
+            check(s["samples"] == want, f"{where}: drew {s['samples']}, "
+                  f"expected {want} at fraction {s['frac']}")
+            check(abs(s["frac"] - s["capacity"] * s["rebalance"]) < 1e-12,
+                  f"{where}: slot fraction {s['frac']} is not capacity x "
+                  "rebalance")
+            check(s["weight"] == (s["samples"] if s["participating"]
+                                  else 0),
+                  f"{where}: fold weight {s['weight']} for a draw of "
+                  f"{s['samples']}")
+            # The vote is not a barrier across groups: a follower may read
+            # the decider's publication of the boundary before (the JAX
+            # design's one-boundary adoption skew), never an older one.
+            check(bool(s["table_read"]), f"{where}: no table read")
+            seq, _, table = s["table_read"].partition(":")
+            check(s["step"] - 1 <= int(seq) <= s["step"],
+                  f"{where}: adopted from the table of boundary {seq}")
+            target = min(fleet.REBALANCE_CEIL, max(
+                fleet.REBALANCE_FLOOR,
+                fleet.parse_rebalance_table(table).get(rid, 1.0)))
+            i = r["steps"].index(s)
+            deferred = s["deferred"] > (r["steps"][i - 1]["deferred"]
+                                        if i else 0)
+            check(deferred or abs(s["rebalance_after"] - target) < 1e-9,
+                  f"{where}: adopted {s['rebalance_after']}, the published "
+                  f"table {table!r} says {target}")
+    g1 = reps[1]
+    lo, hi = g1.get("degraded_at"), g1.get("restored_at")
+    check(lo == CAPACITY_DEGRADE_AT and hi == CAPACITY_RESTORE_AT,
+          f"capacity B: group 1 degraded at {lo}, restored at {hi}")
+    for s in g1["steps"]:
+        want = CAPACITY_FRACTION if lo < s["step"] <= hi else 1.0
+        check(s["capacity"] == want, f"capacity B: group 1 step "
+              f"{s['step']} drew at capacity {s['capacity']}, not {want}")
+        if lo < s["step"] <= hi and s["rebalance"] == 1.0:
+            check(s["samples"] == int(CAPACITY_BATCH * CAPACITY_FRACTION),
+                  f"capacity B: group 1 step {s['step']} drew "
+                  f"{s['samples']}")
+        if lo < s["step"] <= hi:
+            check(s["capacity_key"] == f"{s['step']}:{CAPACITY_FRACTION}",
+                  f"capacity B: group 1's capacity advertisement at step "
+                  f"{s['step']}: {s['capacity_key']!r}")
+    check(g1["metrics"]["degrade_events_total"] == 1
+          and g1["metrics"]["restore_events_total"] == 1,
+          f"capacity B: group 1 counters {g1['metrics']}")
+    _capacity_fold_check(workdir, reps)
+    _capacity_digests_equal(reps, "capacity B")
+    check(len({r["state_hash"] for r in reps}) == 1,
+          "capacity B: groups ended with different state")
+    _capacity_finite(reps, "capacity B")
+    shrunk = any(s["rebalance_after"] < 1.0 for s in reps[2]["steps"])
+    log(f"capacity B: the rebalance ladder "
+        f"{'shrank' if shrunk else 'never shrank'} the slow group 2 "
+        f"(tables read {sorted({s['table_read'].partition(':')[2] for r in reps for s in r['steps']})})")
+    return reps
+
+
+def phase_capacity(procs: list) -> dict:
+    """The participation plane (see CAPACITY_* above and the module
+    docstring)."""
+    from torchft_tpu_torch.data import TokenFileDataset
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_capacity_")
+    try:
+        free = shutil.disk_usage(workdir).free
+        log(f"capacity: {free / 1e9:.1f} GB free under {workdir}")
+        check(free >= CAPACITY_DISK_BYTES,
+              f"capacity: {free / 1e9:.1f} GB free under {workdir}, the "
+              f"phase needs {CAPACITY_DISK_BYTES / 1e9:.0f} GB")
+        TokenFileDataset.write(
+            os.path.join(workdir, "tokens.npy"),
+            np.random.default_rng(0).integers(
+                0, CAPACITY_VOCAB, size=CAPACITY_WINDOWS * CAPACITY_SEQ)
+            .astype(np.uint16))
+        reps = _capacity_run_a(procs, workdir) \
+            + _capacity_run_b(procs, workdir)
+    finally:
+        for name in os.listdir(workdir):
+            if name.endswith(".log"):
+                shutil.copy(os.path.join(workdir, name), OUT_DIR)
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {n: sum(r["launches"].get(n, 0) for r in reps)
+                for n in KERNELS}
+    check(all(launches[n] > 0 for n in ("fwd", "bwd_fused",
+                                         "attest_words")),
+          f"capacity: kernels not launched ({launches})")
+    return {"launches": launches, "reports": reps}
+
+
 # ------------------------------------------------------------------ main
+
+
+# The run's own deadline, inside the script's 1200 s limit: past it the
+# run fails and stops its workers.
+DEADLINE_S = 1150
 
 
 def main(argv: list) -> int:
@@ -2146,7 +2818,7 @@ def main(argv: list) -> int:
     ap.add_argument(
         "--phases",
         default="card,kernels,ft,split,sp,wire,overlap,shard,attest,"
-        "durable")
+        "durable,capacity")
     # A rank of the sp phase's group, or a group of the wire phase
     # (started by the phase itself).
     ap.add_argument("--sp-worker", type=int, default=None)
@@ -2158,6 +2830,14 @@ def main(argv: list) -> int:
     ap.add_argument("--shard-worker", type=int, default=None)
     ap.add_argument("--shard-lighthouse")
     ap.add_argument("--shard-report")
+    ap.add_argument("--capacity-worker", type=int, default=None)
+    ap.add_argument("--capacity-run")
+    ap.add_argument("--capacity-seed", type=int)
+    ap.add_argument("--capacity-lighthouse")
+    ap.add_argument("--capacity-dir")
+    ap.add_argument("--capacity-hold", type=int, default=0)
+    ap.add_argument("--capacity-gate", type=int, default=0)
+    ap.add_argument("--capacity-preset", action="store_true")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     # Full-precision float32 matmuls: the plain versions are references.
@@ -2171,16 +2851,38 @@ def main(argv: list) -> int:
     if args.shard_worker is not None:
         return shard_worker(args.shard_worker, args.shard_lighthouse,
                             args.shard_report)
+    if args.capacity_worker is not None:
+        return capacity_worker(
+            args.capacity_worker, args.capacity_run, args.capacity_seed,
+            args.capacity_lighthouse, args.capacity_dir,
+            os.path.join(args.capacity_dir,
+                         f"capacity_{args.capacity_run}_"
+                         f"{args.capacity_worker}_{args.capacity_seed}.json"),
+            args.capacity_hold, args.capacity_gate, args.capacity_preset)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
     procs: list = []
+
+    def stop(signum, frame):
+        raise SmokeError(f"stopped by {signal.Signals(signum).name}")
+
+    # A signal, or the script's own deadline, fails the run through the
+    # finally below, which stops every worker still running.
+    for signum in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP,
+                   signal.SIGALRM):
+        signal.signal(signum, stop)
+    signal.alarm(DEADLINE_S)
     try:
         def timed(name: str, fn, *args):
             t1 = time.perf_counter()
             res = fn(*args)
+            # This process's cached blocks (the kernels phase's plain
+            # versions at batch 8 hold tens of GB) go back to the card
+            # before the next phase's groups start.
+            torch.cuda.empty_cache()
             log(f"{name}: phase wall_s={time.perf_counter() - t1:.1f}")
             return res
 
@@ -2199,21 +2901,20 @@ def main(argv: list) -> int:
             launches.update(timed("sp", phase_sp, procs)["launches"])
         if "wire" in phases:
             timed("wire", phase_wire, procs)
-        # The overlap, shard, attest and durable paths run the forward
-        # and the fused backward too: each path's own counts go under its
-        # own key.
+        # The overlap, shard, attest, durable and capacity paths run the
+        # forward and the fused backward too: each path's own counts go
+        # under its own key.
         added = {}
         for name, phase in (("overlap", phase_overlap),
                             ("shard", phase_shard),
                             ("attest", phase_attest),
-                            ("durable", phase_durable)):
+                            ("durable", phase_durable),
+                            ("capacity", phase_capacity)):
             if name in phases:
                 added[name] = timed(name, phase, procs)["launches"]
     finally:
-        for p in procs:
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)
-                p.wait()
+        signal.alarm(0)
+        _stop(procs)
     entries = []
     for n, (fn, kernel, tpu) in KERNELS.items():
         row = rows.get(n, {})

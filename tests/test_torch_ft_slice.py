@@ -28,7 +28,8 @@ pytestmark = pytest.mark.port
 SEQ = 32
 
 
-def _group(gid: int, seed: int, lighthouse: str) -> FTTrainer:
+def _group(gid: int, seed: int, lighthouse: str,
+           use_async_quorum: bool = True) -> FTTrainer:
     cfg = tiny_config(dtype=torch.float32, num_layers=1, embed_dim=64)
     model = Transformer(cfg, device="cpu",
                         generator=torch.Generator().manual_seed(seed))
@@ -46,7 +47,8 @@ def _group(gid: int, seed: int, lighthouse: str) -> FTTrainer:
             comm=HostCommunicator(timeout_sec=30), load_state_dict=load,
             state_dict=save, min_replica_size=1, replica_id=f"g{gid}",
             lighthouse_addr=lighthouse, checkpoint_bind_host="127.0.0.1",
-            timeout_ms=30_000, quorum_timeout_ms=30_000))
+            timeout_ms=30_000, quorum_timeout_ms=30_000,
+            use_async_quorum=use_async_quorum))
 
 
 def _run(trainer: FTTrainer, gid: int, until: int, out: dict) -> None:
@@ -114,12 +116,59 @@ def test_two_groups_leave_rejoin_heal_bitwise(fast_path):
         lh.shutdown()
 
 
+def test_two_groups_sync_quorum_rejoin_heal_bitwise():
+    """The sync quorum (``use_async_quorum=False``) against the real
+    lighthouse with its fast path on: each asker blocks in ``step()``
+    until the round answers, and a rejoining group restores there and
+    takes part in its heal step. Both groups commit every step and end
+    with bitwise equal params and AdamW state."""
+    torch.set_num_threads(2)
+    lh = Lighthouse(bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=200,
+                    quorum_tick_ms=20)
+    g0 = g1 = None
+    try:
+        g0 = _group(0, seed=0, lighthouse=lh.address(),
+                    use_async_quorum=False)
+        g1 = _group(1, seed=1, lighthouse=lh.address(),
+                    use_async_quorum=False)
+        r0, r1 = {}, {}
+        _threads((g0, 0, 3, r0), (g1, 1, 3, r1))
+        assert "error" not in r0 and "error" not in r1, (r0, r1)
+        g1.shutdown()
+        g1 = _group(1, seed=7, lighthouse=lh.address(),
+                    use_async_quorum=False)
+        r1 = {}
+        _threads((g0, 0, 5, r0), (g1, 1, 5, r1))
+        assert "error" not in r0 and "error" not in r1, (r0, r1)
+        assert g1.manager.metrics()["heal_count"] == 1
+        assert r1["committed"] == [True, True] and all(r0["committed"])
+        # Steps 1-4 each counted two participants, the heal steps (1 and
+        # 4) included; under the async quorum a healer sits its heal step
+        # out and the count would be 6.
+        assert g0.manager.batches_committed() == 8
+        assert g1.manager.batches_committed() == 8
+        for name, p in g0.params.items():
+            assert torch.equal(p, g1.params[name]), name
+            s0, s1 = g0.optimizer.state[p], g1.optimizer.state[
+                g1.params[name]]
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(s0[key], s1[key]), (name, key)
+    finally:
+        for g in (g0, g1):
+            if g is not None:
+                g.shutdown()
+        lh.shutdown()
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import no JAX; nor
     do the attestation wrapper's words (``csrc/attest.cu``'s plain route
     on the CPU) and the numpy fingerprint, run once; nor a durable save,
-    recover and verified load through ``checkpoint_io``, and a Manager's
-    graceful drain (farewell, final save, ``PreemptedExit``)."""
+    recover and verified load through ``checkpoint_io``, a Manager's
+    graceful drain (farewell, final save, ``PreemptedExit``), and the
+    participation plane: a spare-mode, sync-quorum Manager with the
+    weighted fold and rebalance armed, a degrade, an elastic draw and the
+    chaos slow band."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torchft_tpu_torch, chip_smoke\n"
@@ -165,6 +214,26 @@ def test_port_imports_no_jax():
         "    pass\n"
         "assert c.farewell.called\n"
         "assert checkpoint_io.verify(d + '/drain/ckpt_1')['committed']\n"
+        "import numpy as np\n"
+        "from torchft_tpu_torch import WorldSizeMode, chaos, data\n"
+        "m2 = manager.Manager(comm=DummyCommunicator(),\n"
+        "    load_state_dict=MagicMock(),\n"
+        "    state_dict=lambda: {'w': leaves[0]}, min_replica_size=1,\n"
+        "    rank=0, world_size=1, _manager_client=c,\n"
+        "    checkpoint_bind_host='127.0.0.1', heal_striped=False,\n"
+        "    use_async_quorum=False, degraded_mode=True, rebalance=True,\n"
+        "    world_size_mode=WorldSizeMode.FIXED_WITH_SPARES)\n"
+        "chaos.install(chaos.parse_spec("
+        "'seed=1;slow:slow_rate=1.0,slow_factor=1.5'))\n"
+        "it = data.ElasticBatchIterator({'x': np.arange(64)},\n"
+        "    data.ElasticSampler(64, m2, batch_size=8))\n"
+        "for _ in range(2):\n"
+        "    m2.step()\n"
+        "    assert len(next(it)['x']) == (8 if m2.capacity_fraction() == 1"
+        " else 4)\n"
+        "    m2.allreduce({'g': leaves[0]}).result()\n"
+        "    assert m2.should_commit() and m2.request_degrade(0.5)\n"
+        "m2.shutdown(); chaos.reset()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'torchft_tpu')]\n"
         "assert not bad, bad\n")

@@ -23,10 +23,6 @@ pytestmark = pytest.mark.port
 
 # Planes of the JAX Manager the port does not carry yet (ROADMAP A1, A3).
 NOT_PORTED = {
-    "degraded mode": {"degraded_capacity_fraction", "degrade_events_total",
-                      "restore_events_total"},
-    "rebalance": {"rebalance_fraction", "rebalance_adoptions_total",
-                  "rebalance_deferred_total"},
     "policy controller": {"policy_current", "policy_switch_refusals",
                           "policy_switch_deferrals", "failure_rate"},
     "publication": {"publish_count", "publish_skipped", "publish_ms_total",

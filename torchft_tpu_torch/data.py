@@ -8,10 +8,19 @@ storage-backed stateful input pipeline (the JAX package's
 * :class:`MemmapDataset` / :class:`TokenFileDataset` — memory-mapped
   ``.npy`` storage; batches are gathered straight off the page cache;
 * :class:`StatefulLoader` — sampler-driven iterator with background
-  prefetch; each batch carries the sampler state as of after that batch.
+  prefetch; each batch carries the sampler state as of after that batch;
+* :class:`ElasticSampler` / :class:`ElasticLoader` (the JAX module's
+  :332-683) — the membership-elastic stream: each participating group
+  draws one slot of a single global batch stream, sized by its capacity
+  and rebalance fractions, so a dead group's shard is not lost and
+  resume needs no loader state; the loader prefetches the slots a commit
+  predicts and places each batch on the trainer's device;
+* :class:`ElasticBatchIterator` / :class:`BatchIterator` — the same two
+  samplers over in-memory arrays.
 
-Batches are numpy dicts; the trainer moves them to its device. The
-membership-elastic sampler and loader are not ported yet.
+Batches are numpy dicts unless a loader is given a device. Index draws
+are numpy's, from ``default_rng((seed, epoch))``, so they equal the JAX
+package's draws for the same seed, slots and fractions.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ import threading
 from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
+
+from torchft_tpu_torch.utils import tree_flatten, tree_unflatten
 
 
 class DistributedSampler:
@@ -310,3 +321,303 @@ class StatefulLoader:
                     "load_state_dict once the read completes")
             self._thread = None
         self._q = None
+
+
+def _reports_samples(manager: Any, fraction: float = 1.0) -> bool:
+    """True when a draw reports its sample count as the fold weight: the
+    manager takes reports, and it runs degraded mode or the draw was
+    taken at a fraction other than 1 (a rebalance resizes the draw with
+    degraded mode off, shrunken and boosted groups alike, and the fold
+    weight must follow). A test double with ``set_step_samples`` but no
+    ``degraded_mode`` probe always reports."""
+    if getattr(manager, "set_step_samples", None) is None:
+        return False
+    if abs(fraction - 1.0) > 1e-9:
+        return True
+    dm = getattr(manager, "degraded_mode", None)
+    return dm is None or bool(dm())
+
+
+class ElasticSampler:
+    """Index batches that follow the quorum instead of a fixed group count.
+
+    Each participating group draws one **slot** of a single global batch
+    stream::
+
+        slot = manager.batches_committed() + manager.participant_rank()
+
+    ``batches_committed`` advances by ``num_participants`` exactly when a
+    step commits (it is part of the manager state a healer restores), and
+    the participant ranks partition ``[0, n)``, so every world size
+    partitions the stream with no static setting; an aborted step redraws
+    the same slots; a membership change re-partitions from the next step
+    on; a healing or benched group (rank ``None``) draws a throwaway
+    batch, whose gradients are zeroed anyway. The epoch's permutation
+    comes from ``default_rng((seed, epoch))``, the same on every group.
+
+    Call :meth:`next_indices` once per step AFTER ``manager.step()``,
+    which advances ``batches_committed``; with
+    :class:`~torchft_tpu_torch.parallel.step.FTTrainer`, pass a zero-arg
+    callable (an :class:`ElasticLoader`) as the batch and the trainer
+    draws at that point.
+    """
+
+    def __init__(self, dataset_size: int, manager: Any,
+                 batch_size: int = 1, shuffle: bool = True,
+                 seed: int = 0) -> None:
+        if dataset_size < batch_size:
+            raise ValueError("dataset smaller than one batch")
+        self.dataset_size = dataset_size
+        self.manager = manager
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.batches_per_epoch = dataset_size // batch_size
+        self._perm_cache: Dict[int, np.ndarray] = {}
+
+    def _perm(self, epoch: int) -> np.ndarray:
+        perm = self._perm_cache.get(epoch)
+        if perm is None:
+            if self.shuffle:
+                perm = np.random.default_rng(
+                    (self.seed, epoch)).permutation(self.dataset_size)
+            else:
+                perm = np.arange(self.dataset_size)
+            # This epoch and its predecessor (draws around a wrap) only.
+            self._perm_cache = {e: p for e, p in self._perm_cache.items()
+                                if e == epoch - 1}
+            self._perm_cache[epoch] = perm
+        return perm
+
+    def _snapshot(self) -> tuple:
+        """``(rank, batches_committed, fraction)`` from one atomic
+        ``Manager.participant_slot`` read, which also joins the step's
+        in-flight quorum. A test double may return a 2-tuple (fraction
+        1.0) or lack the call (two separate reads)."""
+        snap = getattr(self.manager, "participant_slot", None)
+        if snap is not None:
+            got = snap()
+            if len(got) >= 3:
+                return got[0], got[1], float(got[2])
+            return got[0], got[1], 1.0
+        return (self.manager.participant_rank(),
+                self.manager.batches_committed(), 1.0)
+
+    def current_slot(self) -> int:
+        """This group's slot of the current step."""
+        rank, committed, _frac = self._snapshot()
+        return int(committed) + (rank or 0)
+
+    def indices_for_slot(self, slot: int,
+                         capacity_fraction: float = 1.0) -> np.ndarray:
+        """The index batch of any slot of the stream. A fraction below 1
+        (degraded or rebalance-shrunken) draws the first
+        ``round(batch_size * fraction)`` indices of the slot; above 1 (a
+        rebalance boost) it draws on into the next slot's prefix, so the
+        fleet's sample total is kept; the draw stops at the epoch's edge
+        (the permutation never wraps)."""
+        epoch, pos = divmod(int(slot), self.batches_per_epoch)
+        perm = self._perm(int(epoch))
+        lo = pos * self.batch_size
+        k = self.batch_size
+        if abs(capacity_fraction - 1.0) > 1e-9:
+            k = max(1, int(round(self.batch_size * capacity_fraction)))
+        return perm[lo:lo + k]
+
+    def next_indices(self) -> np.ndarray:
+        """This group's index batch for the current step, sized by the
+        effective fraction of the same snapshot; its size is reported to
+        the manager as the fold weight whenever the weight is read."""
+        rank, committed, frac = self._snapshot()
+        idx = self.indices_for_slot(int(committed) + (rank or 0), frac)
+        if _reports_samples(self.manager, frac):
+            self.manager.set_step_samples(len(idx))
+        return idx
+
+    def epoch(self) -> int:
+        return int(self.manager.batches_committed()
+                   // self.batches_per_epoch)
+
+
+def _tree_index(arrays: Any, idx: np.ndarray) -> Any:
+    leaves, treedef = tree_flatten(arrays)
+    return tree_unflatten(treedef, [a[idx] for a in leaves])
+
+
+def _place(batch: Any, device: Any) -> Any:
+    """Each leaf of ``batch`` as a tensor on ``device``."""
+    import torch
+
+    leaves, treedef = tree_flatten(batch)
+    return tree_unflatten(treedef, [
+        torch.as_tensor(np.asarray(a)).to(device) for a in leaves])
+
+
+class ElasticBatchIterator:
+    """Batches of in-memory arrays drawn by an :class:`ElasticSampler`,
+    one draw per training step."""
+
+    def __init__(self, arrays: Any, sampler: ElasticSampler) -> None:
+        self.arrays = arrays
+        self.sampler = sampler
+
+    def __iter__(self) -> "ElasticBatchIterator":
+        return self
+
+    def __next__(self) -> Any:
+        return _tree_index(self.arrays, self.sampler.next_indices())
+
+
+class ElasticLoader:
+    """The elastic stream over a storage dataset, with prefetch.
+
+    Composes :class:`ElasticSampler` with a dataset (anything with
+    ``__getitem__(index_batch)``) and a background thread. Pass the
+    loader itself as ``FTTrainer.train_step``'s batch: it is a zero-arg
+    callable, drawn after ``manager.step()``, when the step's slot is
+    known.
+
+    Prefetch predicts the next slots — a commit advances the stream by
+    ``num_participants``, an abort redraws the same slot — and keeps the
+    current slot's batch for the abort case; a misprediction (membership
+    or fraction change) costs one synchronous read. The served slot is
+    always recomputed from the live counters, and batches are keyed by
+    ``(slot, fraction)``, so a stale prediction is never served. Exact
+    resume is free: the stream position is
+    ``manager.batches_committed()``, which rides the manager state.
+
+    ``device``: when given, each served batch's leaves are tensors on it
+    (the cache keeps the host copies).
+    """
+
+    def __init__(self, dataset: Any, sampler: ElasticSampler,
+                 prefetch: int = 2, device: Any = None) -> None:
+        self.dataset = dataset
+        self.sampler = sampler
+        self.prefetch = max(int(prefetch), 0)
+        self.device = device
+        # (slot, fraction) -> batch, oldest first.
+        self._cache: Dict[tuple, Any] = {}
+        self._cache_cap = 2 * self.prefetch + 2
+        self._lock = threading.Lock()
+        self._inflight: set = set()
+        self._req: "queue.Queue[Optional[tuple]]" = queue.Queue()
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
+
+    def _ensure_thread(self) -> None:
+        if self._thread is None and self.prefetch > 0:
+            # A restart after shutdown: clear the stop flag, the markers
+            # the previous thread orphaned (one would suppress its slot's
+            # prefetch forever) and a leftover None sentinel.
+            self._stop.clear()
+            with self._lock:
+                self._inflight.clear()
+            while True:
+                try:
+                    self._req.get_nowait()
+                except queue.Empty:
+                    break
+            self._thread = threading.Thread(
+                target=self._prefetch_loop, daemon=True,
+                name="elastic-loader")
+            self._thread.start()
+
+    def _prefetch_loop(self) -> None:
+        while True:
+            key = self._req.get()
+            # The stop flag before every read: shutdown must not wait
+            # behind a queue of reads.
+            if key is None or self._stop.is_set():
+                return
+            slot, frac = key
+            try:
+                batch = self.dataset[
+                    self.sampler.indices_for_slot(slot, frac)]
+            except Exception:  # noqa: BLE001 — dropped; the draw re-reads
+                with self._lock:
+                    self._inflight.discard(key)
+                continue
+            with self._lock:
+                self._inflight.discard(key)
+                self._store(key, batch)
+
+    def _store(self, key: tuple, batch: Any) -> None:
+        self._cache[key] = batch
+        while len(self._cache) > self._cache_cap:
+            self._cache.pop(next(iter(self._cache)))
+
+    def __call__(self) -> Any:
+        """The current step's batch (call after ``manager.step()``). Its
+        size is reported as the fold weight whenever the weight is read
+        (degraded mode, or a fraction other than 1)."""
+        rank, committed, frac = self.sampler._snapshot()
+        slot = int(committed) + (rank or 0)
+        key = (slot, frac)
+        with self._lock:
+            batch = self._cache.get(key)
+        if batch is None:
+            self.prefetch_misses += 1
+            batch = self.dataset[self.sampler.indices_for_slot(slot, frac)]
+            with self._lock:
+                self._store(key, batch)  # kept: an abort redraws it
+        else:
+            self.prefetch_hits += 1
+        if _reports_samples(self.sampler.manager, frac):
+            leaves = tree_flatten(batch)[0]
+            if leaves:
+                # Rows of the first leaf: a tuple batch's len() would be
+                # its field count.
+                self.sampler.manager.set_step_samples(len(leaves[0]))
+        if self.prefetch > 0:
+            self._ensure_thread()
+            n = max(int(getattr(self.sampler.manager, "num_participants",
+                                lambda: 1)() or 1), 1)
+            with self._lock:
+                for ahead in range(1, self.prefetch + 1):
+                    k = (slot + ahead * n, frac)
+                    if k not in self._cache and k not in self._inflight:
+                        self._inflight.add(k)
+                        self._req.put(k)
+        return batch if self.device is None else _place(batch, self.device)
+
+    def shutdown(self) -> None:
+        if self._thread is not None:
+            self._stop.set()
+            self._req.put(None)
+            self._thread.join(timeout=5)
+            if self._thread.is_alive():
+                # A live reader would keep touching the dataset after the
+                # caller tears it down.
+                raise RuntimeError(
+                    "ElasticLoader: prefetch thread did not stop within "
+                    "5s (storage read wedged?); retry shutdown once the "
+                    "read completes")
+            self._thread = None
+
+
+class BatchIterator:
+    """Endless batches of in-memory arrays from a
+    :class:`DistributedSampler`, advancing epochs."""
+
+    def __init__(self, arrays: Any, sampler: DistributedSampler) -> None:
+        self.arrays = arrays
+        self.sampler = sampler
+        self._it: Optional[Iterator[np.ndarray]] = None
+
+    def __iter__(self) -> "BatchIterator":
+        return self
+
+    def __next__(self) -> Any:
+        while True:
+            if self._it is None:
+                self._it = iter(self.sampler)
+            try:
+                idx = next(self._it)
+                break
+            except StopIteration:
+                self.sampler.set_epoch(self.sampler.epoch + 1)
+                self._it = None
+        return _tree_index(self.arrays, idx)

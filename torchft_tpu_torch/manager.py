@@ -42,9 +42,18 @@ durability plane and the churn surface: the commit-coupled
 rung), the graceful preemption drain (``install_preemption_handler``,
 ``request_preemption`` .. ``_execute_drain``, :2922-3175: farewell, final
 save, advertisements withdrawn, :class:`PreemptedExit`), ``prejoin_heal``
-(:3217) and the join-coalescing count. The policy controller,
-rebalancing, degraded mode, the RAM tier and publication are later
-sub-slices; their constructor arguments are not accepted.
+(:3217) and the join-coalescing count. The participation plane, which
+decides who contributes to the fold and with what weight: warm spares
+(``world_size_mode=WorldSizeMode.FIXED_WITH_SPARES``, :1294-1305) and the
+synchronous quorum (``use_async_quorum=False``, :1186-1197), the atomic
+``participant_slot`` snapshot (:4990) the elastic sampler draws by, the
+weighted fold's weight (``set_step_samples`` / ``_wire_weight``,
+:2289-2318), degraded capacity (``degraded_mode``, ``request_degrade`` /
+``request_restore``, :3377-3506), the adoption of the lighthouse's
+rebalance table at commit boundaries (``rebalance``, :3508-3633) and the
+chaos ``slow`` band (:4610). The policy controller, the RAM tier and
+publication are later sub-slices; their constructor arguments are not
+accepted.
 
 The device side of the allreduce is torch, on the gradients' device (a
 CUDA card, or the CPU in tests): each bucket's gradient leaves are packed
@@ -75,6 +84,7 @@ import uuid
 import zlib
 from collections import OrderedDict, deque
 from concurrent.futures import Future, ThreadPoolExecutor
+from enum import Enum
 from typing import (Any, Callable, Dict, Iterator, List, Optional, TypeVar,
                     cast)
 
@@ -83,6 +93,7 @@ import torch
 
 from torchft_tpu_torch import chaos as chaos_mod
 from torchft_tpu_torch import checkpoint_io
+from torchft_tpu_torch import fleet as fleet_mod
 from torchft_tpu_torch import policy as policy_mod
 from torchft_tpu_torch import serialization
 from torchft_tpu_torch import tracing as tracing_mod
@@ -108,7 +119,29 @@ _MAX_DONOR_FAILOVERS = 3
 # How long a healer re-reads a donor's advertisement that is behind the
 # heal's max_step before dropping it (_healset_scrape).
 _HEALSET_CATCH_UP_SEC = 2.0
+# Fixed quorum-store key the rebalance decision rides on: the store has no
+# delete, so a per-step key would leak one entry per boundary.
+_REBALANCE_KEY: str = "torchft/rebalance"
+# Fold weight of a capacity fraction when the caller reports no exact
+# sample count: round(fraction * SCALE). Only ratios between groups
+# matter; 10_000 keeps three decimals of the fraction.
+_CAPACITY_WEIGHT_SCALE = 10_000
 T = TypeVar("T")
+
+
+class WorldSizeMode(Enum):
+    """How the participating world follows membership.
+
+    DYNAMIC: every healthy group at max_step takes part (at least
+        ``min_replica_size``); the global batch follows the membership.
+    FIXED_WITH_SPARES: the participating world is clamped to exactly
+        ``min_replica_size``; surplus groups run as warm spares that
+        compute, contribute zeros and apply the same update, so one can
+        take a dead group's place at the next quorum without a heal.
+    """
+
+    DYNAMIC = 0
+    FIXED_WITH_SPARES = 1
 
 
 class _LatencyReservoir:
@@ -166,6 +199,11 @@ class Manager:
             open, and for the heal target's structure.
         min_replica_size: minimum number of live replica groups for a
             quorum to be usable.
+        use_async_quorum: True (default) runs the quorum round on the
+            manager's thread under the caller's forward and backward; a
+            healer then sits the step out and contributes zeros. False
+            resolves the quorum inside :meth:`step`, where a healer also
+            restores its state, so it takes part in that same step.
         timeout_ms / quorum_timeout_ms: RPC timeouts for the commit barrier
             and the quorum.
         rank / world_size: this process's rank within its replica group and
@@ -175,6 +213,9 @@ class Manager:
         store_addr / lighthouse_addr: the group's KV store (rank 0 starts
             one when omitted) and the global lighthouse (env
             ``TORCHFT_LIGHTHOUSE``).
+        world_size_mode: :class:`WorldSizeMode`; ``FIXED_WITH_SPARES``
+            clamps the participating world to ``min_replica_size`` and
+            benches the groups beyond it as warm spares.
         allreduce_bucket_bytes: target bucket size of the pipelined host
             allreduce, in wire bytes.
         allreduce_wire_dtype: ``torch.bfloat16`` (or ``"bfloat16"``)
@@ -206,6 +247,24 @@ class Manager:
             int8 + error feedback); it wins over
             ``allreduce_wire_dtype``, rides :meth:`state_dict`, and a
             healer adopts the donor's. DiLoCo policies are not ported.
+        degraded_mode: arm the weighted fold (env ``TORCHFT_DEGRADED``):
+            every wire op carries this group's fold weight — the samples
+            it contributes (:meth:`set_step_samples`, reported by an
+            :class:`~torchft_tpu_torch.data.ElasticSampler` draw), else
+            its capacity fraction at a fixed scale, 0 for a healer or a
+            spare — and the ring divides by the total weight instead of
+            the participant count. :meth:`request_degrade` /
+            :meth:`request_restore` move this group's capacity fraction
+            at a commit boundary. A launch flag: every group of a job
+            sets it alike.
+        rebalance: adopt the lighthouse's straggler rebalance table (env
+            ``TORCHFT_REBALANCE``): participating rank 0 publishes the
+            table its fleet hint carries on the quorum store at every
+            commit boundary, and every group adopts its own entry there
+            after the vote, refused mid-heal, mid-deferred or errored.
+            The adopted fraction composes with the capacity fraction in
+            :meth:`participant_slot`. Arms the weighted fold, as
+            ``degraded_mode`` does.
         heal_striped: stripe a heal across ALL live donors at once (env
             ``TORCHFT_HEAL_STRIPED``, default on): participants advertise
             their checkpoint address under a per-rank store key each
@@ -244,6 +303,7 @@ class Manager:
         load_state_dict: Callable[[T], None],
         state_dict: Callable[[], T],
         min_replica_size: int,
+        use_async_quorum: bool = True,
         timeout_ms: int = 60_000,
         quorum_timeout_ms: int = 60_000,
         rank: Optional[int] = None,
@@ -251,11 +311,14 @@ class Manager:
         replica_id: Optional[str] = None,
         store_addr: Optional[str] = None,
         lighthouse_addr: Optional[str] = None,
+        world_size_mode: WorldSizeMode = WorldSizeMode.DYNAMIC,
         allreduce_bucket_bytes: int = 4 << 20,
         allreduce_wire_dtype: Optional[Any] = None,
         overlap_steps: int = 0,
         shard_update: bool = False,
         device_quantize: Optional[bool] = None,
+        degraded_mode: Optional[bool] = None,
+        rebalance: Optional[bool] = None,
         policy: Optional[policy_mod.FTPolicy] = None,
         heal_striped: Optional[bool] = None,
         fleet_telemetry: Optional[bool] = None,
@@ -305,6 +368,37 @@ class Manager:
                 "TORCHFT_DEVICE_QUANT", "1").strip().lower() \
                 not in ("0", "false")
         self._device_quant = bool(device_quantize)
+        # The weighted fold is a property of the whole ring (a preamble
+        # that mixes weighted and unweighted ranks aborts the op), so both
+        # switches that arm it are launch flags; the capacity and
+        # rebalance fractions they weight by are live, and move only at
+        # commit boundaries. The exact sample count, when reported
+        # (set_step_samples), wins over the fraction-derived weight.
+        self._degraded = _env_flag(degraded_mode, "TORCHFT_DEGRADED",
+                                   default=False)
+        self._rebalance = _env_flag(rebalance, "TORCHFT_REBALANCE",
+                                    default=False)
+        if ((self._degraded or self._rebalance)
+                and getattr(comm, "wants_device_arrays", False)):
+            raise ValueError(
+                "degraded_mode and rebalance require a host-path "
+                "communicator: the weighted fold lives in the host ring's "
+                "wire ops, which on-device backends never issue")
+        self._capacity_fraction = 1.0
+        self._step_samples: Optional[int] = None
+        self._rebalance_fraction = 1.0
+        # The fraction in force for the step the next digest measures:
+        # the digest is pushed after this boundary's adoption landed.
+        self._rebalance_frac_prev = 1.0
+        self._rebalance_table = ""
+        self._rebalance_published: Optional[tuple] = None
+        # (store address, replica world, max world) of the last quorum
+        # round: the rebalance decision rides that store.
+        self._policy_round: Optional[tuple] = None
+        # The chaos slow band: the last boundary's time and the sleep
+        # injected there, so the stretch applies to the natural wall.
+        self._chaos_slow_prev: Optional[float] = None
+        self._chaos_slow_injected = 0.0
         self._heal_striped = _env_flag(heal_striped, "TORCHFT_HEAL_STRIPED")
         self._fleet_telemetry = _env_flag(fleet_telemetry,
                                           "TORCHFT_FLEET_TELEMETRY")
@@ -345,6 +439,8 @@ class Manager:
         self._user_load_state_dict = load_state_dict
         self._user_state_dict = state_dict
         self._min_replica_size = min_replica_size
+        self._use_async_quorum = bool(use_async_quorum)
+        self._world_size_mode = world_size_mode
         self._timeout_ms = timeout_ms
         self._quorum_timeout_ms = quorum_timeout_ms
         self._rank = rank if rank is not None else int(
@@ -430,6 +526,14 @@ class Manager:
             "preempt_deadline_expired_total": 0.0,
             "graceful_exits_total": 0.0, "prejoin_heals_total": 0.0,
             "joins_coalesced_total": 0.0,
+            # Degraded capacity: the fraction in force (a gauge) and the
+            # transitions that landed (refusals ride the event log).
+            "degraded_capacity_fraction": 1.0,
+            "degrade_events_total": 0.0, "restore_events_total": 0.0,
+            # Rebalance: the adopted fraction (a gauge), the adoptions
+            # that landed and those a refusal deferred a boundary.
+            "rebalance_fraction": 1.0, "rebalance_adoptions_total": 0.0,
+            "rebalance_deferred_total": 0.0,
         }
         self._metrics_lock = threading.Lock()
         # p50 / p95 / max of the quorum round's wall (metrics()).
@@ -587,7 +691,12 @@ class Manager:
         # Chaos sdc band: a post-commit bit flip at this boundary trains
         # this step and loses the attestation vote at the next boundary.
         self._maybe_chaos_sdc()
+        # Chaos slow band: stretch this group's step wall at the same
+        # edge, a straggler the lighthouse's rebalancer should shrink.
+        self._maybe_chaos_slow()
         if self._should_step:
+            # Under the metrics lock: participant_slot() never sees the
+            # new count with the old rank.
             with self._metrics_lock:
                 self._step += 1
                 self._batches_committed += self._participating_world_size
@@ -598,6 +707,17 @@ class Manager:
         self._ckpt_server.allow_checkpoint(self._step)
         self._tracer.set_context(step=self._step)
         self._quorum_future = self._executor.submit(self._async_quorum)
+        if not self._use_async_quorum:
+            self._quorum_future.result()
+            if self._healing:
+                # Sync quorum: the state is restored before compute, so
+                # the healer takes part in this step. A donor-less
+                # quarantine re-heal stages nothing; the latch keeps the
+                # group out of the fold and it retries next boundary.
+                if self._pending_state_dict is not None:
+                    self._apply_pending_state_dict()
+                with self._metrics_lock:
+                    self._healing = False
 
     def _async_quorum(self) -> None:
         try:
@@ -644,11 +764,29 @@ class Manager:
         self._last_round_facts = (getattr(q, "store_address", "") or "",
                                   q.replica_rank, q.max_world_size)
 
-        with self._metrics_lock:
-            # Healers are not at max_step: they sit this step out
-            # (max_rank is None) and contribute zero grads.
-            self._participating_rank = q.max_rank
-            self._participating_world_size = q.max_world_size
+        # The store the rebalance decision rides on, and the round's
+        # worlds (a max world below the replica world means someone heals).
+        self._policy_round = (getattr(q, "store_address", "") or "",
+                              q.replica_world_size, q.max_world_size)
+        with self._metrics_lock:  # paired with participant_slot()
+            if self._use_async_quorum:
+                # Healers are not at max_step: they sit this step out
+                # (max_rank is None) and contribute zero grads.
+                self._participating_rank = q.max_rank
+                self._participating_world_size = q.max_world_size
+            else:
+                # A sync healer restores inside step(), before compute.
+                self._participating_rank = q.replica_rank
+                self._participating_world_size = q.replica_world_size
+            if self._world_size_mode == WorldSizeMode.FIXED_WITH_SPARES:
+                # Clamp the arithmetic world; the groups beyond it are
+                # warm spares with zero contributions.
+                self._participating_world_size = min(
+                    self._participating_world_size, self._min_replica_size)
+                if (self._participating_rank is not None
+                        and self._participating_rank
+                        >= self._min_replica_size):
+                    self._participating_rank = None
 
         # Rebuild the ring on a membership change, or when a collective
         # error poisoned it with membership unchanged: then every member
@@ -671,7 +809,8 @@ class Manager:
                            dtype_name(self._wire_dtype)
                            if self._wire_dtype is not None else "None")
                 setter(f"bucket_bytes={self._bucket_bytes};"
-                       f"wire_dtype={wire_fp};degraded=0;payload=wire-v5")
+                       f"wire_dtype={wire_fp};"
+                       f"degraded={int(self._degraded)};payload=wire-v5")
             reconf_t0 = time.perf_counter()
             self._comm.configure(store_prefixed, q.replica_rank,
                                  q.replica_world_size)
@@ -716,8 +855,10 @@ class Manager:
                 self._sdc_reheal(q)
                 return
             # Advertise this participant's checkpoint server so healers
-            # can stripe a fetch across every live donor.
+            # can stripe a fetch across every live donor, and its
+            # capacity fraction.
             self._publish_healset(q)
+            self._publish_capacity(q)
             return
         # Lagging (or a fresh non-primary at step 1): fetch the primary's
         # live state.
@@ -787,10 +928,12 @@ class Manager:
         gauges (``fleet_p95_ms``, ``straggler_score``, ``fleet_groups``,
         ``slo_breach``) refresh every round; a breach names THIS group,
         counted, logged and flight-dumped once per (slo, step). Then the
-        attestation half (:meth:`_consume_sdc_verdict`). The JAX hint's
-        rebalance table belongs to a later sub-slice and is not read.
-        Type guards everywhere: a hint-less (mocked) client reads as
-        zeros, never poisons the numeric metrics."""
+        attestation half (:meth:`_consume_sdc_verdict`). The rebalance
+        table is stored for the commit boundary, tri-state like the
+        verdict: a string (empty = a uniform fleet) replaces it, a
+        missing field (an older control plane) leaves it alone. Type
+        guards everywhere: a hint-less (mocked) client reads as zeros,
+        never poisons the numeric metrics."""
         def _num(name: str) -> float:
             v = getattr(q, name, 0.0)
             return (float(v) if isinstance(v, (int, float))
@@ -816,6 +959,9 @@ class Manager:
                 self._slo_seen.popitem(last=False)
             self._metrics["slo_breaches_total"] += len(fresh)
             self._fleet_stage = _s("straggler_stage")
+            rt = getattr(q, "rebalance_table", None)
+            if isinstance(rt, str):
+                self._rebalance_table = rt
         self._consume_sdc_verdict(q)
         if not fresh:
             return
@@ -1246,7 +1392,7 @@ class Manager:
         user, mgr_state = checkpoint_io.load(
             path, target=self._user_state_dict())
         self._user_load_state_dict(user)
-        self.load_state_dict(mgr_state)
+        self.load_durable_state(mgr_state, checkpoint_io.read_meta(path))
         self._record(ckpt_cold_starts=1)
         self._log_event(
             event="cold_start", recovered=True, path=path, step=self._step,
@@ -1258,6 +1404,21 @@ class Manager:
             int(stats.get("ckpt_corrupt_quarantined", 0.0)),
             int(stats.get("ckpt_recover_fallbacks", 0.0)))
         return path
+
+    def load_durable_state(self, mgr_state: Dict[str, int],
+                           head: Dict[str, Any]) -> None:
+        """Restore the manager metadata of a durable file (``head`` is its
+        :func:`checkpoint_io.read_meta`). A file is written after its step
+        committed, but the step's contribution to ``batches_committed``
+        lands only at the next :meth:`step`; its head's ``participants``
+        is that contribution, and it is restored as the pending one, so
+        the resumed count — and an elastic stream's slot — go on where
+        the saving run would have (ROADMAP C12: the JAX Manager's resume
+        loses it, and redraws the saved step's slots)."""
+        self.load_state_dict(mgr_state)
+        with self._metrics_lock:
+            self._participating_world_size = max(
+                int(head.get("participants", 0) or 0), 0)
 
     # ------------------------------------------- graceful preemption drain
     # A reclaim notice (SIGTERM through install_preemption_handler, or
@@ -1557,6 +1718,222 @@ class Manager:
 
     # ------------------------------------------------------------- allreduce
 
+    # ------------------------------------------------- degraded capacity
+    # A group that lost part of its devices keeps training at a fraction
+    # of its batch; its gradient is weighted by the samples it
+    # contributed. Transitions land only at a commit boundary and are
+    # refused mid-heal, mid-deferred or errored (save_durable's refusal
+    # classes, less its not-committed rule: an aborted step applied
+    # nothing, and a chip loss that keeps aborting the vote is exactly
+    # when a degrade must land).
+
+    def degraded_mode(self) -> bool:
+        """True when built with ``degraded_mode=True``."""
+        return self._degraded
+
+    def capacity_fraction(self) -> float:
+        """The capacity fraction in force (1.0 = full capacity)."""
+        with self._metrics_lock:
+            return self._capacity_fraction
+
+    def _capacity_blocked(self) -> list:
+        with self._metrics_lock:
+            healing = self._healing
+        blocked = []
+        if healing:
+            blocked.append("healing")
+        if self._deferred is not None:
+            blocked.append("deferred in flight")
+        if self._errored is not None:
+            blocked.append("errored")
+        return blocked
+
+    def _land_capacity(self, fraction: float, samples: Optional[int],
+                       event: str, counter: str, reason: str) -> bool:
+        blocked = self._capacity_blocked()
+        if blocked:
+            self._log_event(event=f"{event}_refused", step=self._step,
+                            fraction=fraction, why=",".join(blocked))
+            logger.warning("%s: %s to capacity %.3f refused (%s); retry "
+                           "at the next boundary", self._replica_id, event,
+                           fraction, ",".join(blocked))
+            return False
+        with self._metrics_lock:
+            prev = self._capacity_fraction
+            self._capacity_fraction = float(fraction)
+            self._step_samples = None if samples is None else int(samples)
+            self._metrics["degraded_capacity_fraction"] = float(fraction)
+            self._metrics[counter] += 1
+        self._log_event(event=event, step=self._step, reason=reason,
+                        **{"from": prev, "to": fraction})
+        self._flight_dump(event, **{"from": prev, "to": fraction,
+                                    "why": reason})
+        logger.info("%s capacity %.3f -> %.3f at step %d (%s)",
+                    self._replica_id, prev, fraction, self._step, reason)
+        return True
+
+    def request_degrade(self, fraction: float,
+                        samples: Optional[int] = None,
+                        reason: str = "device_loss") -> bool:
+        """Land a capacity degrade at this commit boundary: the group
+        contributes ``fraction`` of its nominal batch from the next step
+        on, its gradient weighted by the samples it contributed
+        (``samples`` pins the count). Returns False, with a
+        ``degrade_refused`` event, mid-heal, mid-deferred or errored;
+        the caller retries at the next boundary."""
+        if not self._degraded:
+            raise RuntimeError(
+                f"{self._replica_id}: request_degrade needs "
+                "Manager(degraded_mode=True): the weighted fold must be "
+                "armed on every group at launch")
+        if not 0.0 < fraction <= 1.0:
+            raise ValueError(
+                f"capacity fraction must be in (0, 1], got {fraction!r}: "
+                "a group at fraction 0 is dead, the eviction path's job")
+        return self._land_capacity(fraction, samples, "degrade",
+                                   "degrade_events_total", reason)
+
+    def request_restore(self, reason: str = "devices_returned") -> bool:
+        """Land the restore to full capacity, with
+        :meth:`request_degrade`'s boundary rules."""
+        if not self._degraded:
+            raise RuntimeError(
+                f"{self._replica_id}: request_restore needs "
+                "Manager(degraded_mode=True)")
+        return self._land_capacity(1.0, None, "restore",
+                                   "restore_events_total", reason)
+
+    def _publish_capacity(self, q: Any) -> None:
+        """Advertise this group's capacity fraction under the fixed
+        per-rank key ``torchft/capacity/<replica_rank>`` of the quorum
+        store, value ``"<step>:<fraction>"``: the fleet's view of it (the
+        fold learns weights from the wire preamble). Best-effort."""
+        if not self._degraded:
+            return
+        try:
+            store = self._healset_client(q)
+            if store is None:
+                return
+            with self._metrics_lock:
+                frac = self._capacity_fraction
+            store.set(f"torchft/capacity/{q.replica_rank}",
+                      f"{self._step}:{frac}".encode())
+        except Exception:  # noqa: BLE001 — advertisement is best-effort
+            logger.debug("capacity publication failed", exc_info=True)
+
+    # --------------------------------------------------- fleet rebalance
+    # The lighthouse's rebalancer turns persistent straggler scores into
+    # per-group batch fractions and echoes the table in every fleet hint.
+    # Participating rank 0 publishes "<step>:<table>" on the quorum store
+    # before each vote; every group reads it after the vote and adopts
+    # its own entry (absent = 1.0), with the capacity refusal rules. The
+    # fraction composes with the capacity fraction in participant_slot().
+
+    def rebalance_enabled(self) -> bool:
+        """True when built with ``rebalance=True``."""
+        return self._rebalance
+
+    def rebalance_fraction(self) -> float:
+        """The rebalance batch fraction in force (1.0 = uniform)."""
+        with self._metrics_lock:
+            return self._rebalance_fraction
+
+    def _policy_coordination(self) -> tuple:
+        """(store address, replica world, max world, coordinated) of the
+        current round; coordinated when a quorum store exists and the
+        ring has more than one member (else decisions apply locally)."""
+        rd = self._policy_round
+        if rd is None:
+            return "", 0, 0, False
+        addr, replica_world, max_world = rd
+        if not isinstance(addr, str):  # a scripted control plane
+            addr = ""
+        coordinated = bool(addr) and self._comm.size() > 1
+        return addr, replica_world, max_world, coordinated
+
+    def _land_rebalance(self, fraction: float, reason: str) -> bool:
+        """Adopt a lighthouse-assigned fraction at this boundary, or count
+        ``rebalance_deferred_total`` and retry at the next one (the table
+        is re-read every round)."""
+        blocked = self._capacity_blocked()
+        if blocked:
+            with self._metrics_lock:
+                self._metrics["rebalance_deferred_total"] += 1
+            self._log_event(event="rebalance_deferred", step=self._step,
+                            fraction=fraction, why=",".join(blocked))
+            logger.warning("%s: rebalance to fraction %.4f deferred (%s); "
+                           "retry at the next boundary", self._replica_id,
+                           fraction, ",".join(blocked))
+            return False
+        with self._metrics_lock:
+            prev = self._rebalance_fraction
+            self._rebalance_fraction = float(fraction)
+            self._metrics["rebalance_fraction"] = float(fraction)
+            self._metrics["rebalance_adoptions_total"] += 1
+        self._log_event(event="rebalance_adopt", step=self._step,
+                        reason=reason, **{"from": prev, "to": fraction})
+        self._flight_dump("rebalance_adopt",
+                          **{"from": prev, "to": fraction, "why": reason})
+        logger.info("%s rebalance fraction %.4f -> %.4f at step %d (%s)",
+                    self._replica_id, prev, fraction, self._step, reason)
+        return True
+
+    def _rebalance_pre_vote(self) -> None:
+        """The decider's half: participating rank 0 publishes
+        ``<step>:<table>`` under the fixed key at every boundary, changed
+        or not, so a follower's read never waits on a missing key."""
+        if not self._rebalance:
+            return
+        addr, _rw, _mw, coordinated = self._policy_coordination()
+        if not coordinated:
+            return
+        if self._participating_rank != 0 or not self.is_participating():
+            return
+        with self._metrics_lock:
+            table = self._rebalance_table
+        try:
+            store = self._store_client(addr)
+            if store is not None:
+                store.set(_REBALANCE_KEY, f"{self._step}:{table}".encode())
+                self._rebalance_published = (self._step, table)
+        except Exception:  # noqa: BLE001 — retried next boundary
+            logger.debug("rebalance publication failed", exc_info=True)
+
+    def _rebalance_post_vote(self) -> None:
+        """Every group's half: read the published table (or, uncoordinated,
+        this group's own hint copy), take this group's entry — absent is
+        1.0, the restore, also a departed group's — clamp it to the
+        ladder's bounds and land it. A failed read adopts nothing."""
+        if not self._rebalance:
+            return
+        addr, _rw, _mw, coordinated = self._policy_coordination()
+        table: Optional[str] = None
+        if coordinated:
+            try:
+                store = self._store_client(addr)
+                if store is not None:
+                    raw = store.get(_REBALANCE_KEY, timeout_ms=min(
+                        self._timeout_ms, 2000)).decode()
+                    table = raw.partition(":")[2]
+            except Exception:  # noqa: BLE001 — the next boundary re-reads
+                logger.debug("rebalance decision read failed",
+                             exc_info=True)
+                return
+        else:
+            with self._metrics_lock:
+                table = self._rebalance_table
+        if table is None:
+            return
+        fractions = fleet_mod.parse_rebalance_table(table)
+        target = float(fractions.get(self._replica_id, 1.0))
+        target = min(fleet_mod.REBALANCE_CEIL,
+                     max(fleet_mod.REBALANCE_FLOOR, target))
+        with self._metrics_lock:
+            cur = self._rebalance_fraction
+        if abs(target - cur) < 1e-9:
+            return
+        self._land_rebalance(target, reason="lighthouse table")
+
     def allreduce(self, tree: Any) -> Future:
         """Average a gradient tree across the participating groups.
 
@@ -1587,8 +1964,9 @@ class Manager:
         """Three overlapped stages per bucket: (1) on the caller thread,
         :meth:`_wire_buckets` stages the bucket and hands it to the comm
         worker; (2) the ring; (3) on the put thread, 1/n on the host and
-        the copy back to the device."""
-        n = max(self.num_participants(), 1)
+        the copy back to the device. Under the weighted fold the ring
+        already divided by the total weight, so the put stage does not."""
+        n = 1 if self._weighted() else max(self.num_participants(), 1)
         ar_t0 = time.perf_counter()
         self._set_wire_tag()
         sched = self._get_schedule(treedef, leaves)
@@ -1681,14 +2059,43 @@ class Manager:
             yield chunks, bufs
 
     def _set_wire_tag(self) -> None:
-        """Per-op preamble facts of the ring (the JAX package's values for
-        a synchronous step): payload kind ``step``, unweighted fold."""
+        """Per-op preamble facts of the ring, stamped on the caller thread
+        before the pipeline's ops: payload kind ``step``, and the fold
+        weight — :meth:`_wire_weight` under the weighted fold, ``-1``
+        (unweighted) otherwise."""
         setter = getattr(self._comm, "set_wire_tag", None)
         if setter is not None:
             setter("step")
         wsetter = getattr(self._comm, "set_wire_weight", None)
         if wsetter is not None:
-            wsetter(-1)
+            wsetter(self._wire_weight() if self._weighted() else -1)
+
+    def _weighted(self) -> bool:
+        """True when the ring folds by weight (degraded mode or
+        rebalance)."""
+        return self._degraded or self._rebalance
+
+    def _wire_weight(self) -> int:
+        """This step's fold weight: 0 while healing, benched or
+        quarantined (a zero contribution carries zero weight), else the
+        samples reported by :meth:`set_step_samples`, else the effective
+        fraction (capacity x rebalance, the product
+        :meth:`participant_slot` snapshots) at a fixed scale."""
+        if not self.is_participating():
+            return 0
+        with self._metrics_lock:
+            samples = self._step_samples
+            frac = self._capacity_fraction * self._rebalance_fraction
+        if samples is not None:
+            return max(int(samples), 0)
+        return max(1, int(round(frac * _CAPACITY_WEIGHT_SCALE)))
+
+    def set_step_samples(self, samples: Optional[int]) -> None:
+        """Report the samples this group contributes this step: the
+        weighted fold's weight. ``None`` reverts to the fraction-derived
+        weight. Read only when the weighted fold is armed."""
+        with self._metrics_lock:
+            self._step_samples = None if samples is None else int(samples)
 
     def _get_schedule(self, treedef: Any, leaves: list
                       ) -> "_AllreduceSchedule":
@@ -1920,7 +2327,7 @@ class Manager:
         each bucket, and the put stage carries only this rank's stripe —
         1/n on the host and the copy to the device, about 1/world of the
         allreduce's put bytes."""
-        n = max(self.num_participants(), 1)
+        n = 1 if self._weighted() else max(self.num_participants(), 1)
         world = max(self._comm.size(), 1)
         rank = self._comm.rank()
         ar_t0 = time.perf_counter()
@@ -2153,8 +2560,10 @@ class Manager:
         """Distributed commit gate: drain in-flight collectives, apply a
         staged heal on this thread, then vote. The step commits iff every
         rank of every participating group succeeded and the quorum was
-        large enough."""
+        large enough. With ``rebalance`` the boundary also carries the
+        rebalance decision: published before the vote, adopted after it."""
         self.prepare_commit()
+        self._rebalance_pre_vote()
         enough = self._participating_world_size >= self._min_replica_size
         local_ok = self._errored is None and enough
         commit_t0 = time.perf_counter()
@@ -2176,6 +2585,7 @@ class Manager:
             self._log_event(event="abort", step=self._step,
                             local_ok=local_ok, error=error)
             self._flight_dump("vote_abort", local_ok=local_ok, error=error)
+        self._rebalance_post_vote()
         self._publish_status()
         # Shut the heal window before the caller mutates state.
         self._ckpt_server.disallow_checkpoint()
@@ -2322,7 +2732,9 @@ class Manager:
         time between boundaries, the stage split the tracer's span totals
         of this step, the heal duration this boundary's counter delta;
         with attestation, the committed state's fingerprint keyed by the
-        quorum id. The first boundary has no wall and pushes nothing."""
+        quorum id; the capacity fraction, and the rebalance fraction in
+        force for the measured step, by which the lighthouse normalizes
+        the wall. The first boundary has no wall and pushes nothing."""
         if not self._fleet_telemetry or self._manager_server is None:
             return
         now = time.monotonic()
@@ -2330,6 +2742,13 @@ class Manager:
         snap = {"t": now, "heal_ms_total": mx.get("heal_ms_total", 0.0),
                 "heal_count": mx.get("heal_count", 0.0)}
         self._digest_prev = snap
+        # The rebalance fraction stamped is the one in force for the step
+        # this digest measures (this boundary's adoption has landed
+        # already); rolled at every boundary, the skipped first included.
+        with self._metrics_lock:
+            reb_prev = self._rebalance_frac_prev
+            self._rebalance_frac_prev = self._rebalance_fraction
+            capacity = self._capacity_fraction
         if prev is None:
             return
         heal_last_ms = (max(snap["heal_ms_total"] - prev["heal_ms_total"],
@@ -2347,11 +2766,14 @@ class Manager:
                 vote_ms=stages.get("vote", 0.0),
                 heal_bytes_inflight=mx.get("heal_last_bytes_committed",
                                            0.0),
+                capacity_fraction=capacity,
+                churn_per_min=mx.get("reconfigures_per_min", 0.0),
                 healing=bool(self._healing or not self.is_participating()),
                 heal_last_ms=heal_last_ms,
                 trace_addr=self._ckpt_server.address(),
                 quorum_id=self._quorum_id,
-                state_digest=self._compute_state_digest())
+                state_digest=self._compute_state_digest(),
+                rebalance_fraction=reb_prev)
         except Exception:  # noqa: BLE001 — observability never fails
             logger.debug("digest push failed", exc_info=True)
 
@@ -2403,6 +2825,34 @@ class Manager:
             self._apply_sdc_flip(d.frac)
         except Exception:  # noqa: BLE001 — chaos never fails a step
             logger.debug("sdc chaos injection failed", exc_info=True)
+
+    def _maybe_chaos_slow(self) -> None:
+        """:meth:`step`'s hook for the chaos ``slow`` band: poll it once
+        per boundary and, on a decision, sleep ``(factor - 1)`` times the
+        natural wall of the boundary just finished (the measured wall
+        less the sleep injected there, so the stretch converges to
+        ``factor`` times instead of compounding). Participants only, and
+        no draw otherwise: a healer or spare reports no wall the
+        rebalancer reads."""
+        now = time.monotonic()
+        prev = self._chaos_slow_prev
+        injected = self._chaos_slow_injected
+        self._chaos_slow_prev = now
+        self._chaos_slow_injected = 0.0
+        if not self.is_participating():
+            return
+        try:
+            factor = chaos_mod.slow_fault(f"slow:{self._replica_id}")
+        except Exception:  # noqa: BLE001 — chaos never fails a step
+            logger.debug("slow chaos injection failed", exc_info=True)
+            return
+        if factor <= 1.0 or prev is None:
+            return
+        sleep_s = (factor - 1.0) * max(0.0, (now - prev) - injected)
+        if sleep_s <= 0.0:
+            return
+        self._chaos_slow_injected = sleep_s
+        time.sleep(sleep_s)
 
     def _apply_sdc_flip(self, frac: float) -> None:
         """Flip one bit of the committed state: the (leaf, byte, bit)
@@ -2509,11 +2959,48 @@ class Manager:
         return self._overlap_steps
 
     def num_participants(self) -> int:
+        """Groups contributing real gradients this step (clamped to
+        ``min_replica_size`` under ``FIXED_WITH_SPARES``)."""
         return self._participating_world_size
 
+    def participant_rank(self) -> Optional[int]:
+        """This group's rank among the step's participants, or ``None``
+        while healing or benched: the elastic sampler's slot offset."""
+        if self._participating_rank is None or self._healing:
+            return None
+        return self._participating_rank
+
+    def participant_slot(self) -> tuple:
+        """Atomic ``(participant_rank, batches_committed,
+        effective_fraction)``, the fraction being the capacity fraction
+        times the rebalance fraction: what
+        :class:`~torchft_tpu_torch.data.ElasticSampler` draws by.
+
+        The three are written under the metrics lock (:meth:`step` bumps
+        the count, the quorum thread installs the rank, the capacity and
+        rebalance transitions move the fractions), so this never returns
+        a torn combination — a new rank with the old count would draw a
+        wrong slot with no error. It first joins the step's in-flight
+        quorum round, so the rank is this step's, not the previous
+        membership's; a failed round is swallowed here (the step aborts
+        through the vote)."""
+        fut = self._quorum_future
+        if fut is not None and not fut.done():
+            try:
+                fut.result()
+            except Exception:  # noqa: BLE001 — latches via wait_quorum
+                pass
+        with self._metrics_lock:
+            if self._participating_rank is None or self._healing:
+                rank: Optional[int] = None
+            else:
+                rank = self._participating_rank
+            frac = self._capacity_fraction * self._rebalance_fraction
+            return rank, self._batches_committed, frac
+
     def is_participating(self) -> bool:
-        """False while healing (and so not at max_step), or while a
-        divergence verdict holds this group out of the fold."""
+        """False while healing (async quorum), benched as a spare, or held
+        out of the fold by a divergence verdict."""
         return (self._participating_rank is not None
                 and not self._sdc_quarantined and not self._healing)
 
@@ -2561,12 +3048,17 @@ class Manager:
             self._store_server.shutdown()
 
 
-def _env_flag(value: Optional[bool], name: str) -> bool:
-    """A default-on switch: ``value`` when given, else the environment
-    variable ``name`` unless it says ``0`` or ``false``."""
+def _env_flag(value: Optional[bool], name: str,
+              default: bool = True) -> bool:
+    """A switch: ``value`` when given, else the environment variable
+    ``name`` — a default-on switch unless it says ``0`` or ``false``, a
+    default-off one only when it says ``1`` or ``true``."""
     if value is not None:
         return bool(value)
-    return os.environ.get(name, "1").strip().lower() not in ("0", "false")
+    raw = os.environ.get(name, "").strip().lower()
+    if default:
+        return raw not in ("0", "false")
+    return raw in ("1", "true")
 
 
 def _addr_base(addr: str) -> str:

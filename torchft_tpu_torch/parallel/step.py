@@ -152,9 +152,11 @@ class FTTrainer:
 
         So gradients are evaluated one update behind. Two cases compute
         again at the settled params instead of using step 1's gradients: a
-        heal restored the params during the settle (the restore copies in
-        place, so :attr:`heal_generation` tells), and a callable batch,
-        which is drawn after ``step()``.
+        heal restored the params — during the settle, or inside ``step()``
+        under the sync quorum (``use_async_quorum=False``), which also
+        clears the healing flag there; the restore copies in place, so
+        :attr:`heal_generation` tells — and a callable batch, which is
+        drawn after ``step()``.
 
         Returns ``(loss, committed)``: this step's loss and the most
         recent settled vote (``True`` before anything settled). The last
@@ -169,9 +171,10 @@ class FTTrainer:
             self._last_committed = self._opt.settle()
             st = self._opt.last_settle_timings
             drain, vote = st["drain"], st["vote_apply"]
-        healed = self.heal_generation != gen
         t2 = time.perf_counter()
         self._opt.begin_step()
+        # Read after step(): a sync quorum restores inside it.
+        healed = self.heal_generation != gen
         if callable(batch):
             batch = batch()
         if spec is None or healed:

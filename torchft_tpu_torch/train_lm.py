@@ -51,8 +51,18 @@ save of the same tree, withdraws its advertisements and exits 0
 the state hash right after the load, recover and load wall), each save's
 dispatch ms on this thread and the snapshot's ms on the card, the
 writer's wall and bytes, the ``ckpt_*`` / ``preempt_*`` counters and
-the peak card memory. Elastic data is not ported yet. ``--device``
-defaults to ``cuda``.
+the peak card memory. ``ELASTIC_DATA=1`` swaps the static 2D sampler
+for the quorum-following stream (``ElasticLoader(ElasticSampler(...),
+prefetch=2)``, batches placed on the device): each participating group
+draws one slot of one global stream, so membership changes re-partition
+it instead of losing a dead group's shard, and the stream position is
+the manager's ``batches_committed``, which rides the manager state — no
+loader state is saved, the checkpoints go to their own
+``CHECKPOINT_DIR/<group>-elastic`` lineage, and a resume continues from
+the restored count. The report then adds each step's drawn sample count
+(``samples``), whether the group took part (``participating``), the
+participant count and the capacity and rebalance fractions in force.
+``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -72,7 +82,8 @@ import torch
 
 from torchft_tpu_torch import checkpoint_io, serialization
 from torchft_tpu_torch.backends.host import HostCommunicator
-from torchft_tpu_torch.data import (DistributedSampler, StatefulLoader,
+from torchft_tpu_torch.data import (DistributedSampler, ElasticLoader,
+                                    ElasticSampler, StatefulLoader,
                                     TokenFileDataset)
 from torchft_tpu_torch.manager import Manager, PreemptedExit
 from torchft_tpu_torch.models.transformer import (Transformer,
@@ -178,14 +189,16 @@ def main(argv: Any = None) -> None:
                 .astype(np.uint16 if cfg.vocab_size <= 65536 else np.int32))
             os.replace(tmp, tokens_file)
     dataset = TokenFileDataset(tokens_file, seq_len=seq_len)
-    sampler = DistributedSampler(
-        dataset_size=len(dataset), replica_group=replica_group,
-        num_replica_groups=num_groups, batch_size=batch_size, seed=0)
-    batches = StatefulLoader(dataset, sampler, prefetch=2)
+    elastic = os.environ.get("ELASTIC_DATA") == "1"
+    batches: Any = None  # the elastic loader needs the manager
+    if not elastic:
+        sampler = DistributedSampler(
+            dataset_size=len(dataset), replica_group=replica_group,
+            num_replica_groups=num_groups, batch_size=batch_size, seed=0)
+        batches = StatefulLoader(dataset, sampler, prefetch=2)
 
-    def loss_fn(m: Transformer, batch: Dict[str, np.ndarray]
-                ) -> torch.Tensor:
-        tokens = torch.from_numpy(batch["tokens"]).to(device)
+    def loss_fn(m: Transformer, batch: Dict[str, Any]) -> torch.Tensor:
+        tokens = torch.as_tensor(batch["tokens"]).to(device)
         hidden = m(tokens, return_hidden=True)
         return chunked_causal_lm_loss(hidden, m.lm_head_kernel(), tokens)
 
@@ -199,34 +212,65 @@ def main(argv: Any = None) -> None:
             load_state_dict=load, state_dict=save, min_replica_size=1,
             replica_id=f"train_lm_{replica_group}", overlap_steps=overlap))
     m = trainer.manager
+    # The elastic draw's rows, read into the report after each step.
+    drawn = [0]
+    if elastic:
+        batches = ElasticLoader(
+            dataset, ElasticSampler(len(dataset), m, batch_size=batch_size,
+                                    seed=0), prefetch=2, device=device)
+
+    def draw() -> Dict[str, Any]:
+        batch = batches()
+        drawn[0] = int(batch["tokens"].shape[0])
+        return batch
+
     logger.info("replica group %d/%d up (%s)", replica_group, num_groups,
                 m.replica_id())
 
     report: Dict[str, Any] = {"group": replica_group, "seed": seed,
-                              "overlap_steps": overlap, "losses": [],
-                              "committed": [], "step_s": [], "hidden_ms": [],
-                              "drain_wait_ms": [], "saved": [],
-                              "ckpt_saves": [], "preempted": False}
+                              "overlap_steps": overlap, "elastic": elastic,
+                              "losses": [], "committed": [], "step_s": [],
+                              "hidden_ms": [], "drain_wait_ms": [],
+                              "saved": [], "ckpt_saves": [],
+                              "preempted": False}
+    if elastic:
+        report.update(samples=[], participating=[], num_participants=[],
+                      capacity_fraction=[], rebalance_fraction=[])
 
     # Durable checkpoints: one directory per group. recover(), not the
     # newest name: the newest file may be torn or bit-rotted, and the scan
     # quarantines it and falls back to the previous good one.
     ckpt_dir = os.environ.get("CHECKPOINT_DIR")
     ckpt_every = int(os.environ.get("CHECKPOINT_EVERY", 10))
-    group_dir = (os.path.join(ckpt_dir, str(replica_group)) if ckpt_dir
-                 else None)
+    # The elastic stream saves no loader state, and a load matches the
+    # tree's structure strictly: each data mode has its own lineage.
+    ckpt_name = (f"{replica_group}-elastic" if elastic
+                 else str(replica_group))
+    group_dir = os.path.join(ckpt_dir, ckpt_name) if ckpt_dir else None
     recover_stats: Dict[str, float] = {}
+    # The loader's position after the last step: the drain's final save
+    # runs inside train_step, after the next batch was drawn.
+    loader_state = None if elastic else batches.state_dict()
+
+    def durable_user_state() -> Dict[str, Any]:
+        user: Dict[str, Any] = {"trainer": trainer.state_dict()}
+        if not elastic:
+            user["loader"] = loader_state
+        return user
+
     if group_dir:
         t_rec = time.perf_counter()
         path = checkpoint_io.recover(group_dir, stats=recover_stats)
         t_load = time.perf_counter()
         if path:
-            user, mgr_state = checkpoint_io.load(path, target={
-                "trainer": trainer.state_dict(),
-                "loader": batches.state_dict()})
+            user, mgr_state = checkpoint_io.load(
+                path, target=durable_user_state())
             trainer.load_state_dict(user["trainer"])
-            batches.load_state_dict(user["loader"])
-            m.load_state_dict(mgr_state)
+            if not elastic:
+                batches.load_state_dict(user["loader"])
+            # With the saved step's contribution: the elastic stream
+            # resumes from batches_committed.
+            m.load_durable_state(mgr_state, checkpoint_io.read_meta(path))
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t_done = time.perf_counter()
@@ -241,12 +285,8 @@ def main(argv: Any = None) -> None:
 
     ckpt_writer = (checkpoint_io.AsyncCheckpointer(keep=3) if group_dir
                    else None)
-    # The loader's position after the last step: the drain's final save
-    # runs inside train_step, after the next batch was drawn.
-    loader_state = batches.state_dict()
-
-    def durable_user_state() -> Dict[str, Any]:
-        return {"trainer": trainer.state_dict(), "loader": loader_state}
+    if not elastic:
+        loader_state = batches.state_dict()
 
     if ckpt_writer is not None:
         m.set_durable_target(ckpt_writer, group_dir,
@@ -332,7 +372,8 @@ def main(argv: Any = None) -> None:
         while m.current_step() < total_steps:
             t0 = time.perf_counter()
             try:
-                loss, committed = trainer.train_step(next(batches))
+                loss, committed = trainer.train_step(
+                    draw if elastic else next(batches))
             except PreemptedExit:
                 # The noticed-reclaim success path: farewell, final save
                 # and withdrawal are done, and the manager is shut down.
@@ -340,7 +381,8 @@ def main(argv: Any = None) -> None:
                             m.current_step())
                 report["preempted"] = True
                 break
-            loader_state = batches.state_dict()
+            if not elastic:
+                loader_state = batches.state_dict()
             step = m.current_step()
             saved = False
             if ckpt_writer is not None and committed \
@@ -369,6 +411,13 @@ def main(argv: Any = None) -> None:
             report["committed"].append(bool(committed))
             report["saved"].append(saved)
             report["step_s"].append(round(time.perf_counter() - t0, 3))
+            if elastic:
+                report["samples"].append(drawn[0])
+                report["participating"].append(m.is_participating())
+                report["num_participants"].append(m.num_participants())
+                report["capacity_fraction"].append(m.capacity_fraction())
+                report["rebalance_fraction"].append(
+                    m.rebalance_fraction())
             mx = m.metrics()
             report["hidden_ms"].append(
                 round(mx["allreduce_hidden_ms_total"], 1))
