@@ -4,7 +4,7 @@
     python3 chip_smoke.py --phases kernels,sp # a subset of card,kernels,
                                               # ft,split,sp,wire,overlap,
                                               # shard,attest,durable,
-                                              # capacity
+                                              # capacity,diloco
 
 Phases:
 
@@ -167,6 +167,32 @@ Phases:
    boundary's lighthouse table and digest walls, and whether the ladder
    shrank the slow group.
 
+12. **diloco** — DiLoCo local SGD (``torchft_tpu_torch.local_sgd``): two
+   ``chip_smoke.py --diloco-worker`` groups at the ft cell's widths, the
+   ft cell's AdamW inside, Nesterov SGD (lr 0.7, momentum 0.9) outside,
+   an outer round every 4 inner steps, both from one init seed at step
+   1. Run P (``DiLoCoTrainer``, 3 rounds): group 1 holds once round 1
+   commits, is SIGKILLed and restarts fresh, healing the whole state
+   (params, anchor, AdamW moments, outer momentum: 9.29 GB) at its first
+   round. Checks: ring bytes and the allreduce count move only at outer
+   rounds, by one f32 pseudo-gradient; round 1's average equal to the
+   plain mean of both groups' saved pseudo-gradients (0 elements may
+   differ) and its anchor within 1e-6 of a plain Nesterov step; after
+   every round equal anchor and outer-momentum sha256 across the groups
+   and params equal to the anchor; the restarted group heals and commits
+   rounds 2-3; no sdc verdict (every group's digest differs under
+   DiLoCo, as in the JAX package). Run S (``StreamingDiLoCoTrainer``, 2
+   fragments, 4 fragment rounds, then a flush), in the same two processes
+   (group 0 and the restarted group 1) from init seed 0 at step 1:
+   fragment ids 0, 1, 0, 1
+   on both groups, each round moving only its fragment's anchor, equal
+   anchors across the groups after every collect, and the merge rule
+   ``anchor' + (p - at_send)`` on group 0. Logs the inner step wall, the
+   outer round split (manager step, pseudo-gradient, ring, vote, update),
+   the heal wall and bytes, ring bytes per round, peak card memory per
+   group, and the device ms of the pseudo-gradient, the outer step and
+   the copy over the whole tree beside their bounds.
+
 Depth: every phase runs Llama-2-7B widths (vocabulary 32000, embedding
 4096, 32 heads of 128, MLP 11008) cut to 1 layer (and the ft and overlap
 drills and the durable phase's run A to 4 steps, the capacity phase's
@@ -180,8 +206,8 @@ Each phase's wall is logged. Launch counts are reset just before each
 driven path and read just after it. The line before the last is a JSON
 object with one entry per kernel: ``launches`` counts the ft phase (and
 the split and sp phases for their kernels), ``launches_overlap``,
-``launches_shard``, ``launches_attest``, ``launches_durable`` and
-``launches_capacity`` those paths' own launches;
+``launches_shard``, ``launches_attest``, ``launches_durable``,
+``launches_capacity`` and ``launches_diloco`` those paths' own launches;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before that line. float32 matmuls are pinned to full precision
 (TF32 off) so the plain versions are exact references.
@@ -2805,6 +2831,527 @@ def phase_capacity(procs: list) -> dict:
     return {"launches": launches, "reports": reps}
 
 
+# ------------------------------------------------------------ diloco
+
+# The diloco cell: the ft cell's model (Llama-2-7B widths at 1 layer, 1 x
+# WIRE_SEQ tokens, bf16 activations) in two chip_smoke.py --diloco-worker
+# groups, the inner optimizer the ft cell's AdamW, the outer one Nesterov
+# SGD (lr 0.7, momentum 0.9), an outer round every DILOCO_SYNC_EVERY inner
+# steps. Both groups start from one init seed at step 1, so no initial
+# sync heals them. Run P (DiLoCoTrainer): DILOCO_ROUNDS_P outer rounds;
+# group 1 holds after round DILOCO_KILL_AFTER commits, is SIGKILLed and
+# restarts fresh (another seed, step 0), so it heals the whole DiLoCo
+# state (params, anchor, AdamW moments, outer momentum) at its first
+# round. Run S (StreamingDiLoCoTrainer, DILOCO_FRAGMENTS fragments):
+# DILOCO_ROUNDS_S fragment rounds, then a flush.
+DILOCO_SYNC_EVERY = 4
+DILOCO_ROUNDS_P = 3
+DILOCO_KILL_AFTER = 1
+DILOCO_FRAGMENTS = 2
+DILOCO_ROUNDS_S = 4
+DILOCO_LR, DILOCO_MOMENTUM = 0.7, 0.9
+# The round-1 anchor against its plain Nesterov recomputation, and the
+# streaming merge against its plain recomputation: max abs over max abs.
+DILOCO_REL = 1e-6
+# Ring bytes of one f32 pseudo-gradient at world 2, against its bytes:
+# each rank sends half the tree in the reduce-scatter and half in the
+# allgather, plus the ring's own headers.
+DILOCO_RING_RATIO = (1.0, 1.01)
+
+
+def _diloco_tokens(vocab: int, group: int, step: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(7000 + 100 * group + step)
+    return torch.randint(0, vocab, (1, WIRE_SEQ), generator=gen).cuda()
+
+
+def _diloco_report(workdir: str, run: str, group: int, seed: int) -> str:
+    return os.path.join(workdir, f"diloco_{run}_{group}_{seed}.json")
+
+
+def _foreach_times(params: list, anchor: list, avg: list) -> dict:
+    """Device ms of the trainer's torch ops over the whole tree, each with
+    its bound (bytes: every input read once, every output written once):
+    the pseudo-gradient (``_foreach_sub``: 2 reads, 1 write), the outer
+    Nesterov step (``torch.optim.SGD``, foreach: params, gradients and
+    momentum read, params and momentum written) and the copy of the
+    anchor into the params (1 read, 1 write). The step runs on copies."""
+    from torchft_tpu_torch.local_sgd import diloco_outer_optimizer
+
+    nbytes = sum(t.numel() * t.element_size() for t in params)
+    scratch = [a.clone() for a in anchor]
+    grads = [g.clone() for g in avg]
+    opt = diloco_outer_optimizer(scratch)
+
+    def outer():
+        for a, g in zip(scratch, grads):
+            a.grad = g
+        opt.step()
+
+    dst = [p.clone() for p in params]
+    out = {}
+    for name, fn, moved in (
+            ("delta", lambda: torch._foreach_sub(anchor, params), 3),
+            ("outer_step", outer, 5),
+            ("copy", lambda: torch._foreach_copy_(dst, anchor), 2)):
+        out[name] = {"ms": cuda_ms(fn, iters=5, warmup=1),
+                     "bound_ms": moved * nbytes / PEAK_BYTES_PER_S * 1e3}
+    del scratch, grads, opt, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def diloco_worker(group: int, runs: str, seed: int, lighthouse: str,
+                  workdir: str, hold: int, preset: bool) -> int:
+    """One replica group of the diloco phase (run as ``chip_smoke.py
+    --diloco-worker``): run P with this process's init ``seed``, then, if
+    ``runs`` is ``ps``, run S in the same process from init seed 0 at
+    step 1 (one process start less per group)."""
+    if not torch.cuda.is_available():
+        raise SmokeError("the diloco worker needs a CUDA device")
+    import gc
+
+    for run in runs:
+        _diloco_run(group, run, seed if run == "p" else 0, lighthouse,
+                    workdir, hold if run == "p" else 0, preset or run == "s")
+        # Run P's trainer, model and saved trees go before run S.
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _diloco_run(group: int, run: str, seed: int, lighthouse: str,
+                workdir: str, hold: int, preset: bool) -> None:
+    """One run of a diloco worker: a ``DiLoCoTrainer`` (run ``p``) or a
+    ``StreamingDiLoCoTrainer`` (run ``s``) over the ft cell's model.
+    Writes one row per inner step (wall, loss, the allreduce count and
+    ring bytes after it) and one per outer round (the round's wall split,
+    the anchor's and the outer momentum's sha256, whether params equal
+    the anchor, heal counters, peak memory); run P's first round also
+    saves this group's pseudo-gradient for the other group's plain-mean
+    check and holds its own average to the plain mean and its anchor to
+    a plain Nesterov step. Run S records each collect's fragment, which
+    anchors moved and, on group 0 at the second collect, the merge rule.
+    With ``hold``, the group waits to be killed once that step commits;
+    with ``preset``, it starts at step 1."""
+    from torchft_tpu_torch.backends.host import HostCommunicator
+    from torchft_tpu_torch.local_sgd import (DiLoCoTrainer,
+                                             StreamingDiLoCoTrainer)
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models.transformer import (
+        Transformer, chunked_causal_lm_loss, llama2_7b_config)
+    from torchft_tpu_torch.ops import attest
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    streaming = run == "s"
+    cfg = llama2_7b_config(num_layers=WIRE_LAYERS,
+                           attention_fn=fa.flash_attention, remat=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+
+    def loss_fn(m, batch):
+        return chunked_causal_lm_loss(m(batch, return_hidden=True),
+                                      m.lm_head_kernel(), batch)
+
+    kw = dict(fragments=DILOCO_FRAGMENTS) if streaming else {}
+    trainer = (StreamingDiLoCoTrainer if streaming else DiLoCoTrainer)(
+        model, loss_fn,
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4,
+                          eps=1e-8, foreach=True),
+        # One participant suffices, as in train_lm: a healer is not one
+        # in its heal round. The lighthouse holds two members per quorum.
+        lambda load, save: Manager(
+            comm=HostCommunicator(), load_state_dict=load,
+            state_dict=save, min_replica_size=1,
+            replica_id=f"diloco_{run}_{group}", lighthouse_addr=lighthouse,
+            rank=0, world_size=1),
+        sync_every=DILOCO_SYNC_EVERY, **kw)
+    m = trainer.manager
+    if preset:
+        m.load_state_dict({"step": 1, "batches_committed": 0})
+    report = _diloco_report(workdir, run, group, seed)
+    out = {"group": group, "run": run, "seed": seed, "steps": [],
+           "rounds": [], "collects": [], "param_bytes": param_bytes}
+    _write_json(report, out)
+    names = list(trainer.params)
+
+    # Run P's first round at world 2: save this group's pseudo-gradient
+    # before the exchange, keep the average before the outer step (whose
+    # Nesterov update adds the momentum into it in place).
+    first = {}
+    exchange = m.allreduce
+
+    def allreduce(tree):
+        if not streaming and preset and m.current_step() == 2 \
+                and not first:
+            first["delta"] = tree
+            first["anchor"] = {n: trainer.anchor[n].clone() for n in names}
+            torch.save(tree, os.path.join(workdir, f"delta_{group}.pt"))
+        fut = exchange(tree)
+        if "delta" in first and "avg" not in first:
+            first["avg"] = {n: t.clone() for n, t in fut.result().items()}
+        return fut
+
+    m.allreduce = allreduce
+
+    collect = trainer.collect_pending if streaming else None
+
+    def collect_pending():
+        pend = trainer._pending
+        if pend is None:
+            return collect()
+        frag, _, at_send = pend
+        mine = trainer._frag_names[frag]
+        before = {n: t.clone() for n, t in trainer.anchor.items()}
+        merge = group == 0 and len(out["collects"]) == 1
+        if merge:
+            p_before = [trainer.params[n].detach().clone() for n in mine]
+            sent = [x.clone() for x in at_send]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = collect()
+        torch.cuda.synchronize()
+        row = {"frag": frag, "committed": res,
+               "wall_s": time.perf_counter() - t0,
+               "moved": [n for n in names
+                         if not torch.equal(trainer.anchor[n], before[n])],
+               "anchor_hash": _tree_hash(trainer.anchor)}
+        del before
+        if merge:
+            got = [trainer.params[n].detach() for n in mine]
+            want = [trainer.anchor[n] + (p - s)
+                    for n, p, s in zip(mine, p_before, sent)]
+            row["merge_diff"] = sum(int((g != w).sum())
+                                    for g, w in zip(got, want))
+            row["merge_rel"] = (
+                max(float((g - w).abs().max()) for g, w in zip(got, want))
+                / max(float(w.abs().max()) for w in want))
+            del p_before, sent, want
+        out["collects"].append(row)
+        log(f"diloco[{run}{group}] collect " + json.dumps(
+            {k: v for k, v in row.items() if k != "moved"}))
+        return res
+
+    if streaming:
+        trainer.collect_pending = collect_pending
+
+    fa.reset_launches()
+    attest.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    total = 1 + (DILOCO_ROUNDS_S if streaming else DILOCO_ROUNDS_P)
+    k = 0
+    try:
+        while (len(out["collects"]) < DILOCO_ROUNDS_S - 1 if streaming
+               else m.current_step() < total):
+            before = m.metrics()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, committed = trainer.train_step(
+                _diloco_tokens(cfg.vocab_size, group, k))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k += 1
+            mx = m.metrics()
+            out["steps"].append({
+                "local": trainer.local_steps, "step": m.current_step(),
+                "loss": float(loss), "wall_s": wall,
+                "committed": committed,
+                "allreduces": mx["allreduce_count"]
+                - before["allreduce_count"],
+                "ring_bytes": mx["allreduce_ring_wire_bytes_total"]
+                - before["allreduce_ring_wire_bytes_total"]})
+            if not streaming and committed is not None:
+                mom = {n: trainer.outer_optimizer.state[a]["momentum_buffer"]
+                       for n, a in trainer.anchor.items()}
+                row = {"step": m.current_step(), "committed": committed,
+                       "local": trainer.local_steps,
+                       "timings": dict(trainer.last_round_timings),
+                       "anchor_hash": _tree_hash(trainer.anchor),
+                       "momentum_hash": _tree_hash(mom),
+                       "params_eq_anchor": all(
+                           torch.equal(trainer.params[n], trainer.anchor[n])
+                           for n in names),
+                       "heal_count": mx["heal_count"],
+                       "heal_ms_total": mx["heal_ms_total"],
+                       "heal_bytes_total": mx["heal_bytes_total"],
+                       "ring_bytes": out["steps"][-1]["ring_bytes"],
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "digest": m._last_state_digest}
+                if "avg" in first and "plain_mean" not in out:
+                    other = os.path.join(workdir, f"delta_{1 - group}.pt")
+                    out["plain_mean"] = _plain_mean_err(
+                        first["avg"], first["delta"], other)
+                    avg, a0 = first["avg"], first["anchor"]
+                    want = {n: a0[n] - DILOCO_LR * (
+                        avg[n] + DILOCO_MOMENTUM * avg[n]) for n in names}
+                    out["anchor_rel"] = (
+                        max(float((trainer.anchor[n] - want[n]).abs().max())
+                            for n in names)
+                        / max(float(want[n].abs().max()) for n in names))
+                    del want, a0
+                    first.pop("anchor")
+                out["rounds"].append(row)
+                log(f"diloco[{run}{group}] round " + json.dumps(row))
+            _write_json(report, out)
+            if hold and m.current_step() == hold and committed:
+                out["held"] = True
+                _write_json(report, out)
+                log(f"diloco[{run}{group}] holding after step {hold}")
+                while True:
+                    time.sleep(1)
+        if streaming:
+            # The flush collects the last in-flight round.
+            trainer.flush()
+        torch.cuda.synchronize()
+        out["launches"] = {**fa.LAUNCHES, **attest.LAUNCHES}
+        mx = m.metrics()
+        out.update(
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            frag_names=(trainer._frag_names if streaming else None),
+            metrics={k: mx[k] for k in (
+                "heal_count", "heal_ms_total", "heal_bytes_total",
+                "committed_steps", "aborted_steps", "sdc_digests_total",
+                "sdc_digest_ms_total", "sdc_quarantines_total",
+                "allreduce_ms_total", "allreduce_ring_ms_total")},
+            params_on_cpu=sum(p.device.type == "cpu"
+                              for p in trainer.params.values()))
+        if not streaming and group == 0:
+            out["foreach"] = _foreach_times(
+                trainer._param_list(), trainer._anchor_list(),
+                [first["avg"][n] for n in names])
+        _write_json(report, out)
+    finally:
+        trainer.shutdown()
+
+
+def _spawn_diloco(group: int, runs: str, seed: int, lighthouse: str,
+                  workdir: str, hold: int = 0,
+                  preset: bool = True) -> subprocess.Popen:
+    return _popen(
+        [sys.executable, os.path.abspath(__file__), "--diloco-worker",
+         str(group), "--diloco-runs", runs, "--diloco-seed", str(seed),
+         "--diloco-lighthouse", lighthouse, "--diloco-dir", workdir,
+         "--diloco-hold", str(hold),
+         *(["--diloco-preset"] if preset else [])],
+        os.path.join(workdir, f"diloco_{group}_{seed}.log"))
+
+
+def _read_diloco(workdir: str, run: str, group: int, seed: int) -> dict:
+    path = _diloco_report(workdir, run, group, seed)
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        try:
+            return json.load(f)
+        except json.JSONDecodeError:
+            return {}
+
+
+def _diloco_runs(procs: list, workdir: str) -> tuple:
+    """Runs P and S under one lighthouse (two members per quorum): group
+    0 and the restarted group 1 go on to run S in the same processes."""
+    from torchft_tpu_torch._native import Lighthouse
+
+    lh = Lighthouse(bind=f"127.0.0.1:{_free_port()}", min_replicas=2,
+                    join_timeout_ms=2000, quorum_tick_ms=50)
+    addr = lh.address()
+    try:
+        t0 = time.perf_counter()
+        g0 = _spawn_diloco(0, "ps", 0, addr, workdir)
+        g1 = _spawn_diloco(1, "p", 0, addr, workdir,
+                           hold=1 + DILOCO_KILL_AFTER)
+        procs += [g0, g1]
+        deadline = time.time() + 600
+        while not _read_diloco(workdir, "p", 1, 0).get("held"):
+            check(g0.poll() is None and g1.poll() is None
+                  and time.time() < deadline,
+                  "diloco P: group 1 never held after round "
+                  f"{DILOCO_KILL_AFTER}")
+            time.sleep(0.05)
+        os.killpg(g1.pid, signal.SIGKILL)
+        g1.wait()
+        log(f"diloco P: SIGKILLed group 1 after round {DILOCO_KILL_AFTER} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        g1b = _spawn_diloco(1, "ps", 7, addr, workdir, preset=False)
+        procs.append(g1b)
+        while not (_read_diloco(workdir, "s", 0, 0)
+                   and _read_diloco(workdir, "s", 1, 0)):
+            check(g0.poll() is None and g1b.poll() is None
+                  and time.time() < deadline,
+                  "diloco P: a group ended or hung before run S")
+            time.sleep(0.05)
+        log(f"diloco P: both groups done in {time.perf_counter() - t0:.1f}"
+            " s")
+        t1 = time.perf_counter()
+        _wait(g0, 600, "diloco group 0")
+        _wait(g1b, 600, "diloco restarted group 1")
+        fleet = _fleet_status(addr)["fleet"]
+        log(f"diloco S: both groups done in {time.perf_counter() - t1:.1f}"
+            f" s; lighthouse sdc_verdicts_total over both runs="
+            f"{fleet['sdc_verdicts_total']}")
+    finally:
+        lh.shutdown()
+    return ([_read_diloco(workdir, "p", 0, 0),
+             _read_diloco(workdir, "p", 1, 0),
+             _read_diloco(workdir, "p", 1, 7)],
+            [_read_diloco(workdir, "s", g, 0) for g in range(2)], fleet)
+
+
+def _diloco_check_p(reps: list, fleet: dict) -> None:
+    g0, g1, g1b = reps
+    for r in reps:
+        tag = f"diloco P group {r['group']} (seed {r['seed']})"
+        check(all(s["loss"] == s["loss"] and abs(s["loss"]) != float("inf")
+                  for s in r["steps"]), f"{tag}: non-finite loss")
+        for s in r["steps"]:
+            # The cross-group exchange moves only at outer rounds, by one
+            # f32 pseudo-gradient.
+            if s["committed"] is None:
+                check(s["allreduces"] == 0 and s["ring_bytes"] == 0,
+                      f"{tag} local step {s['local']}: an inner step moved "
+                      f"{s['ring_bytes']} ring bytes")
+            else:
+                ratio = s["ring_bytes"] / r["param_bytes"]
+                lo, hi = DILOCO_RING_RATIO
+                check(s["allreduces"] == 1 and lo <= ratio <= hi,
+                      f"{tag} local step {s['local']}: {s['allreduces']} "
+                      f"allreduces, ring bytes {ratio:.4f} of the "
+                      "pseudo-gradient")
+        for row in r["rounds"]:
+            check(row["committed"],
+                  f"{tag} step {row['step']}: the round aborted")
+            check(row["params_eq_anchor"],
+                  f"{tag} step {row['step']}: params differ from the anchor")
+    for r in (g0, g1):
+        tag = f"diloco P group {r['group']} round 1"
+        bad, err = r["plain_mean"]
+        check(bad == 0, f"{tag}: the averaged pseudo-gradient differs from "
+              f"the plain mean in {bad} elements (max {err:.3g})")
+        check(r["anchor_rel"] <= DILOCO_REL,
+              f"{tag}: anchor {r['anchor_rel']:.3g} off the plain Nesterov "
+              f"step (limit {DILOCO_REL})")
+    by_step = {row["step"]: row for row in g0["rounds"]}
+    check(sorted(by_step) == list(range(2, 2 + DILOCO_ROUNDS_P)),
+          f"diloco P group 0 rounds at steps {sorted(by_step)}")
+    for r in (g1, g1b):
+        for row in r["rounds"]:
+            want = by_step[row["step"]]
+            for key in ("anchor_hash", "momentum_hash"):
+                check(row[key] == want[key],
+                      f"diloco P step {row['step']}: {key} of group 1 (seed "
+                      f"{r['seed']}) differs from group 0's")
+    check([row["step"] for row in g1["rounds"]]
+          == list(range(2, 2 + DILOCO_KILL_AFTER)),
+          f"diloco P: the killed group's rounds {g1['rounds']}")
+    check(g1b["metrics"]["heal_count"] >= 1,
+          "diloco P: the restarted group never healed")
+    check([row["step"] for row in g1b["rounds"]]
+          == list(range(2 + DILOCO_KILL_AFTER, 2 + DILOCO_ROUNDS_P)),
+          "diloco P: the restarted group committed rounds at steps "
+          f"{[row['step'] for row in g1b['rounds']]}")
+    # DiLoCo's per-group state (inner moments, drifted params) makes every
+    # group's digest differ: no majority, no verdict (the JAX package's
+    # behaviour, held by tests/test_torch_local_sgd.py).
+    check(fleet["sdc_verdicts_total"] == 0,
+          f"diloco: {fleet['sdc_verdicts_total']} sdc verdicts")
+    check(all(r["metrics"]["sdc_quarantines_total"] == 0
+              for r in (g0, g1b)), "diloco P: a group was quarantined")
+
+
+def _diloco_check_s(reps: list) -> None:
+    frags = [[c["frag"] for c in r["collects"]] for r in reps]
+    want = [i % DILOCO_FRAGMENTS for i in range(DILOCO_ROUNDS_S)]
+    check(frags[0] == frags[1] == want,
+          f"diloco S: fragment ids {frags}, expected {want} on both")
+    for r in reps:
+        tag = f"diloco S group {r['group']}"
+        check(all(s["loss"] == s["loss"] and abs(s["loss"]) != float("inf")
+                  for s in r["steps"]), f"{tag}: non-finite loss")
+        for c in r["collects"]:
+            names = r["frag_names"][c["frag"]]
+            check(c["committed"], f"{tag}: fragment {c['frag']} aborted")
+            check(set(c["moved"]) <= set(names) and c["moved"],
+                  f"{tag}: fragment {c['frag']}'s round moved {c['moved']}")
+    for i, (a, b) in enumerate(zip(*[r["collects"] for r in reps])):
+        check(a["anchor_hash"] == b["anchor_hash"],
+              f"diloco S collect {i + 1}: the groups' anchors differ")
+    merge = reps[0]["collects"][1]
+    check(merge["merge_rel"] <= DILOCO_REL,
+          f"diloco S: merge rule off by {merge['merge_rel']:.3g} "
+          f"({merge['merge_diff']} elements differ)")
+
+
+def _diloco_log(p: list, s: list) -> None:
+    card = card_line()
+    for r in p + s:
+        walls = sorted(x["wall_s"] for x in r["steps"]
+                       if x["committed"] is None)
+        log(f"diloco {r['run'].upper()} group {r['group']} seed {r['seed']}"
+            f" [{card}]: inner step wall_s median "
+            f"{walls[len(walls) // 2] if walls else float('nan'):.3f} "
+            f"(n={len(walls)}), peak card GB "
+            f"{r.get('peak_bytes', 0) / 1e9:.3f}, heal ms "
+            f"{r.get('metrics', {}).get('heal_ms_total', 0):.0f} bytes "
+            f"{r.get('metrics', {}).get('heal_bytes_total', 0) / 1e9:.3f} GB"
+            f", digests {r.get('metrics', {}).get('sdc_digests_total')} "
+            f"({r.get('metrics', {}).get('sdc_digest_ms_total', 0):.0f} ms)"
+            f", allreduce ms {r.get('metrics', {}).get('allreduce_ms_total')}"
+            f" of which host ring "
+            f"{r.get('metrics', {}).get('allreduce_ring_ms_total')}")
+        if "plain_mean" in r:
+            log(f"diloco P group {r['group']} round 1: average against the "
+                f"plain mean, elements differing {r['plain_mean'][0]} (max "
+                f"{r['plain_mean'][1]:.3g}); anchor against the plain "
+                f"Nesterov step {r['anchor_rel']:.3g} (max abs over max "
+                "abs)")
+        for row in r["rounds"]:
+            t = row["timings"]
+            log(f"diloco P group {r['group']} step {row['step']} [{card}]: "
+                f"round ms total {t['total'] * 1e3:.1f} = step "
+                f"{t['step'] * 1e3:.1f} + pseudo-gradient "
+                f"{t['delta'] * 1e3:.1f} + ring {t['allreduce'] * 1e3:.1f}"
+                f" + vote {t['vote'] * 1e3:.1f} + update "
+                f"{t['update'] * 1e3:.1f}; ring GB "
+                f"{row['ring_bytes'] / 1e9:.3f}; heal_count "
+                f"{row['heal_count']}")
+        for c in r["collects"]:
+            log(f"diloco S group {r['group']} fragment {c['frag']} "
+                f"[{card}]: collect wall_s {c['wall_s']:.3f}"
+                + (f"; merge rule off by {c['merge_rel']:.3g}, "
+                   f"{c['merge_diff']} elements differ"
+                   if "merge_rel" in c else ""))
+        for name, t in (r.get("foreach") or {}).items():
+            log(f"diloco P {name} over the tree [{card}]: "
+                f"{t['ms']:.3f} ms (bound {t['bound_ms']:.3f} ms)")
+
+
+def phase_diloco(procs: list) -> dict:
+    """DiLoCo local SGD (see DILOCO_* above and the module docstring)."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_diloco_")
+    try:
+        p, s, fleet = _diloco_runs(procs, workdir)
+    finally:
+        for name in os.listdir(workdir):
+            if name.endswith(".log"):
+                shutil.copy(os.path.join(workdir, name), OUT_DIR)
+        shutil.rmtree(workdir, ignore_errors=True)
+    _diloco_log(p, s)
+    _diloco_check_p(p, fleet)
+    _diloco_check_s(s)
+    launches = {n: sum(r["launches"].get(n, 0) for r in p + s
+                       if "launches" in r) for n in KERNELS}
+    check(all(launches[n] > 0 for n in ("fwd", "bwd_fused",
+                                         "attest_words")),
+          f"diloco: kernels not launched ({launches})")
+    for r in p + s:
+        if "launches" in r:
+            check(r["params_on_cpu"] == 0,
+                  f"diloco {r['run']} group {r['group']}: parameters on the "
+                  "CPU")
+    return {"launches": launches, "reports": p + s}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2818,7 +3365,7 @@ def main(argv: list) -> int:
     ap.add_argument(
         "--phases",
         default="card,kernels,ft,split,sp,wire,overlap,shard,attest,"
-        "durable,capacity")
+        "durable,capacity,diloco")
     # A rank of the sp phase's group, or a group of the wire phase
     # (started by the phase itself).
     ap.add_argument("--sp-worker", type=int, default=None)
@@ -2838,6 +3385,13 @@ def main(argv: list) -> int:
     ap.add_argument("--capacity-hold", type=int, default=0)
     ap.add_argument("--capacity-gate", type=int, default=0)
     ap.add_argument("--capacity-preset", action="store_true")
+    ap.add_argument("--diloco-worker", type=int, default=None)
+    ap.add_argument("--diloco-runs")
+    ap.add_argument("--diloco-seed", type=int)
+    ap.add_argument("--diloco-lighthouse")
+    ap.add_argument("--diloco-dir")
+    ap.add_argument("--diloco-hold", type=int, default=0)
+    ap.add_argument("--diloco-preset", action="store_true")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     # Full-precision float32 matmuls: the plain versions are references.
@@ -2859,6 +3413,11 @@ def main(argv: list) -> int:
                          f"capacity_{args.capacity_run}_"
                          f"{args.capacity_worker}_{args.capacity_seed}.json"),
             args.capacity_hold, args.capacity_gate, args.capacity_preset)
+    if args.diloco_worker is not None:
+        return diloco_worker(
+            args.diloco_worker, args.diloco_runs, args.diloco_seed,
+            args.diloco_lighthouse, args.diloco_dir, args.diloco_hold,
+            args.diloco_preset)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2901,15 +3460,16 @@ def main(argv: list) -> int:
             launches.update(timed("sp", phase_sp, procs)["launches"])
         if "wire" in phases:
             timed("wire", phase_wire, procs)
-        # The overlap, shard, attest, durable and capacity paths run the
-        # forward and the fused backward too: each path's own counts go
-        # under its own key.
+        # The overlap, shard, attest, durable, capacity and diloco paths
+        # run the forward and the fused backward too: each path's own
+        # counts go under its own key.
         added = {}
         for name, phase in (("overlap", phase_overlap),
                             ("shard", phase_shard),
                             ("attest", phase_attest),
                             ("durable", phase_durable),
-                            ("capacity", phase_capacity)):
+                            ("capacity", phase_capacity),
+                            ("diloco", phase_diloco)):
             if name in phases:
                 added[name] = timed(name, phase, procs)["launches"]
     finally:

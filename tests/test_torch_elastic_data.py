@@ -20,6 +20,7 @@ import torch
 from torchft_tpu import data as jdata
 from torchft_tpu_torch import checkpoint_io as cio
 from torchft_tpu_torch import data as tdata
+from torch_fakes import few_threads  # noqa: F401
 
 pytestmark = pytest.mark.port
 
@@ -195,6 +196,7 @@ def _env(tmp_path, lighthouse, steps, ck):
             "TORCHFT_CHECKPOINT_BIND": "127.0.0.1"}
 
 
+@pytest.mark.usefixtures("few_threads")
 def test_train_lm_elastic_resumes_from_batches_committed(tmp_path,
                                                          monkeypatch):
     """One tiny group with ``ELASTIC_DATA=1``: saves land in
@@ -206,9 +208,6 @@ def test_train_lm_elastic_resumes_from_batches_committed(tmp_path,
     from torchft_tpu_torch import train_lm
     from torchft_tpu_torch._native import Lighthouse
 
-    # Few intra-op threads: beside the other test workers, a full pool
-    # spends the run waiting for cores.
-    torch.set_num_threads(2)
     lh = Lighthouse(bind="127.0.0.1:0", min_replicas=1, join_timeout_ms=100,
                     quorum_tick_ms=20)
     prev = signal.getsignal(signal.SIGTERM)

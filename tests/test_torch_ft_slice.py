@@ -22,6 +22,7 @@ from torchft_tpu_torch.models.transformer import (Transformer,
                                                   chunked_causal_lm_loss,
                                                   tiny_config)
 from torchft_tpu_torch.parallel.step import FTTrainer
+from torch_fakes import few_threads  # noqa: F401
 
 pytestmark = pytest.mark.port
 
@@ -73,11 +74,11 @@ def _threads(*jobs) -> None:
         assert not t.is_alive(), "a replica group hung"
 
 
+@pytest.mark.usefixtures("few_threads")
 @pytest.mark.parametrize("fast_path", [True, False])
 def test_two_groups_leave_rejoin_heal_bitwise(fast_path):
     """Bitwise replicas through leave, rejoin and heal, with the
     lighthouse's quorum fast path on (its default) and off."""
-    torch.set_num_threads(2)
     lh = Lighthouse(bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=200,
                     quorum_tick_ms=20, fast_path=fast_path)
     g0 = g1 = g1b = None
@@ -116,13 +117,13 @@ def test_two_groups_leave_rejoin_heal_bitwise(fast_path):
         lh.shutdown()
 
 
+@pytest.mark.usefixtures("few_threads")
 def test_two_groups_sync_quorum_rejoin_heal_bitwise():
     """The sync quorum (``use_async_quorum=False``) against the real
     lighthouse with its fast path on: each asker blocks in ``step()``
     until the round answers, and a rejoining group restores there and
     takes part in its heal step. Both groups commit every step and end
     with bitwise equal params and AdamW state."""
-    torch.set_num_threads(2)
     lh = Lighthouse(bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=200,
                     quorum_tick_ms=20)
     g0 = g1 = None
@@ -168,7 +169,8 @@ def test_port_imports_no_jax():
     graceful drain (farewell, final save, ``PreemptedExit``), and the
     participation plane: a spare-mode, sync-quorum Manager with the
     weighted fold and rebalance armed, a degrade, an elastic draw and the
-    chaos slow band."""
+    chaos slow band; nor the DiLoCo trainers, plain and streaming, through
+    their outer rounds."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torchft_tpu_torch, chip_smoke\n"
@@ -177,6 +179,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "assert 'torchft_tpu_torch.parallel.ring_attention' in sys.modules\n"
         "assert 'torchft_tpu_torch.ops.attest' in sys.modules\n"
+        "assert 'torchft_tpu_torch.local_sgd' in sys.modules\n"
         "import torch\n"
         "from torchft_tpu_torch import serialization\n"
         "from torchft_tpu_torch.ops import attest\n"
@@ -234,6 +237,23 @@ def test_port_imports_no_jax():
         "    m2.allreduce({'g': leaves[0]}).result()\n"
         "    assert m2.should_commit() and m2.request_degrade(0.5)\n"
         "m2.shutdown(); chaos.reset()\n"
+        "from torchft_tpu_torch import local_sgd\n"
+        "for cls, kw in ((local_sgd.DiLoCoTrainer, {}),\n"
+        "                (local_sgd.StreamingDiLoCoTrainer,"
+        " {'fragments': 2})):\n"
+        "    net = torch.nn.Linear(2, 2)\n"
+        "    t = cls(net, lambda n, b: n(b).square().mean(),\n"
+        "        torch.optim.AdamW(net.parameters()),\n"
+        "        lambda load, save: manager.Manager(comm=DummyCommunicator(),\n"
+        "            load_state_dict=load, state_dict=save,"
+        " min_replica_size=1,\n"
+        "            rank=0, world_size=1, _manager_client=c,\n"
+        "            checkpoint_bind_host='127.0.0.1', heal_striped=False),\n"
+        "        sync_every=2, **kw)\n"
+        "    for _ in range(4):\n"
+        "        t.train_step(torch.ones(1, 2))\n"
+        "    assert t.manager.metrics()['committed_steps'] >= 1\n"
+        "    t.shutdown()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'torchft_tpu')]\n"
         "assert not bad, bad\n")

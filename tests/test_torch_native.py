@@ -30,7 +30,8 @@ SOURCES = ["capi.cc", "lighthouse.cc", "lighthouse.h", "manager.cc",
 
 # Core files the port patches, each with its unified diff against the JAX
 # package's file.
-PATCHED = {"lighthouse.cc": os.path.join("patches", "fast_path_quorum.patch")}
+PATCHED = {"lighthouse.cc": os.path.join("patches", "fast_path_quorum.patch"),
+           "lighthouse.h": os.path.join("patches", "fast_path_quorum_h.patch")}
 
 
 def _apply_unified_diff(text: str, diff: str) -> str:
@@ -116,6 +117,55 @@ def test_fast_path_counts_every_member_at_its_step():
         assert all(v == (k[1], 2) for k, v in got.items()), got
         assert any(q.fast_path for q in results.values())
         assert lh.status()["fast_path_hits"] >= 2
+    finally:
+        for s in servers:
+            s.shutdown()
+        lh.shutdown()
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_every_member_reads_its_own_rounds_decision(groups):
+    """Groups ask back to back, with no pause, for many steps. A served
+    member asks at its next step at once, and so registers that step in
+    the cached quorum, often before a peer of the round it just left has
+    woken to read its answer. Every answer still counts all groups at the
+    asker's step: a waiter of a fast round reads the decision its round
+    was served, and a member parked in a slow round reads the cut that
+    held it. Before, the late reader found the cache showing the quicker
+    peer alone at max_step, took ``max_world_size == 1`` (a ring sum
+    divided by 1), and on the fast path fell to the slow one and healed
+    from that peer."""
+    steps = 400
+    lh = _native.Lighthouse(bind="127.0.0.1:0", min_replicas=groups,
+                            join_timeout_ms=2000, quorum_tick_ms=10,
+                            heartbeat_fresh_ms=300)
+    servers = [_native.ManagerServer(f"g{i}", lh.address(),
+                                     store_addr=f"st{i}", bind="127.0.0.1:0")
+               for i in range(groups)]
+    results: dict = {}
+    try:
+        def run(i):
+            client = _native.ManagerClient(servers[i].address())
+            for step in range(1, steps + 1):
+                results[(i, step)] = client.quorum(
+                    rank=0, step=step, checkpoint_server_addr=f"c{i}",
+                    timeout_ms=20_000)
+
+        ts = [threading.Thread(target=run, args=(i,))
+              for i in range(groups)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+            assert not t.is_alive(), "a group hung in the quorum"
+        assert len(results) == groups * steps
+        # At step 1 every group but the primary heals from it, by design.
+        bad = {k: (q.max_step, q.max_world_size, q.heal)
+               for k, q in results.items()
+               if (q.max_step, q.max_world_size) != (k[1], groups)
+               or (q.heal and k[1] > 1)}
+        assert not bad, sorted(bad.items())[:8]
+        assert lh.status()["fast_path_hits"] >= groups * (steps - 2)
     finally:
         for s in servers:
             s.shutdown()

@@ -36,7 +36,7 @@ from torchft_tpu_torch.models.transformer import (Transformer,
                                                   chunked_causal_lm_loss,
                                                   tiny_config)
 from torchft_tpu_torch.parallel.step import FTTrainer
-from torch_fakes import fake_quorum_stores  # noqa: F401
+from torch_fakes import fake_quorum_stores, few_threads  # noqa: F401
 
 pytestmark = pytest.mark.port
 
@@ -234,12 +234,12 @@ def test_spare_promoted_without_heal_after_a_death():
     assert {row[2] for row in port[1] + port[2]} == {2}
 
 
+@pytest.mark.usefixtures("few_threads")
 def test_spare_run_through_the_trainer_on_the_tiny_model():
     """The three-group spare run with ``FTTrainer`` and the tiny
     Transformer: the participating world stays 2, one group ends benched,
     and the spare's params and AdamW state stay bitwise the
     participants'."""
-    torch.set_num_threads(2)  # three trainers share the cores
     comms = _quorum_comms(thost, 3, {1: [0, 1, 2]})
     cfg = tiny_config(max_seq_len=32)
     results = [None] * 3

@@ -6,7 +6,8 @@ module that imports it) makes both packages' Managers dial one such store
 per address, shared by every Manager of the test, as a real quorum store
 is shared by the groups: the healset advertisements of the striped heal
 (on by default in both packages) then land there instead of dialing the
-scripted quorum's store address.
+scripted quorum's store address. The :func:`few_threads` fixture gives a
+test two intra-op threads and restores the count after it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import threading
 
 import pytest
+import torch
 
 
 class FakeStore:
@@ -50,3 +52,15 @@ def fake_quorum_stores(monkeypatch) -> dict:
     monkeypatch.setattr(tmanager, "StoreClient", client)
     monkeypatch.setattr(jmanager, "StoreClient", client)
     return stores
+
+
+@pytest.fixture
+def few_threads():
+    """Two intra-op threads for a test that trains several groups or runs
+    ``train_lm`` in-process (beside the other test workers a full pool
+    spends the run waiting for cores), and the count restored after it:
+    the next test in the same process runs with its own."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

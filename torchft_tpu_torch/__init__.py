@@ -10,11 +10,15 @@ JAX or the JAX package.
 from torchft_tpu_torch.backends.host import HostCommunicator
 from torchft_tpu_torch.communicator import (Communicator, CommunicatorError,
                                             Int8Wire)
+from torchft_tpu_torch.local_sgd import (DiLoCoTrainer,
+                                         StreamingDiLoCoTrainer,
+                                         diloco_outer_optimizer)
 from torchft_tpu_torch.manager import (Manager, PreemptedExit,
                                        WorldSizeMode)
 from torchft_tpu_torch.optim import FTOptimizer
 from torchft_tpu_torch.parallel.step import FTTrainer
 
-__all__ = ["Communicator", "CommunicatorError", "FTOptimizer", "FTTrainer",
-           "HostCommunicator", "Int8Wire", "Manager", "PreemptedExit",
-           "WorldSizeMode"]
+__all__ = ["Communicator", "CommunicatorError", "DiLoCoTrainer",
+           "FTOptimizer", "FTTrainer", "HostCommunicator", "Int8Wire",
+           "Manager", "PreemptedExit", "StreamingDiLoCoTrainer",
+           "WorldSizeMode", "diloco_outer_optimizer"]

@@ -811,6 +811,11 @@ bool Lighthouse::tick() {
   first_join_ms_ = 0;
   first_joiner_ms_ = 0;
   broadcast_seq_++;
+  // The cut as its members are answered: a fast registration may move the
+  // cache on before a parked member wakes.
+  cuts_[broadcast_seq_] = q;
+  while (cuts_.size() > 16) cuts_.erase(cuts_.begin());
+  fast_served_step_ = -1;
   cv_.notify_all();
   return true;
 }
@@ -1457,10 +1462,30 @@ bool Lighthouse::handle_quorum(const LighthouseQuorumRequest& r,
   // an asker behind a peer, a fan-in that outlasts join_timeout_ms, and a
   // membership that stops being eligible while the asker waits. Nobody is
   // served before every member has registered, so a step generation is
-  // never split between fast-served and parked members.
+  // never split between fast-served and parked members. Once one member of
+  // a generation is served, every other member registered in it is served
+  // the same decision, whatever it finds when it wakes: its beat may have
+  // gone stale meanwhile, or a served peer may already have registered its
+  // next step, which leaves the cache showing that peer alone at the top.
   bool registered = false;
   int64_t deadline = 0;
+  const auto serve_fast = [&]() {
+    epoch_++;
+    fast_path_hits_++;
+    fill_response_locked(out, /*fast=*/true);
+    *out->mutable_quorum() = fast_served_quorum_;
+    out->mutable_quorum()->set_epoch(epoch_);
+    // Fleet health hint (docs/design/fleet_health.md): cached-aggregate
+    // read under fleet_mu_ + leaf digest locks only — the fast path's
+    // latency budget never pays for aggregation (bounded by the
+    // kFleetCacheMs recompute cap).
+    fill_fleet_hint(me.replica_id(), out->mutable_fleet());
+  };
   for (;;) {
+    if (registered && fast_served_step_ == me.step()) {
+      serve_fast();
+      return true;
+    }
     const int64_t dseq = beats_.departed_seq();
     if (!fast_eligible_locked(me.replica_id(), me.step())) break;
     if (!registered) {
@@ -1484,15 +1509,10 @@ bool Lighthouse::handle_quorum(const LighthouseQuorumRequest& r,
       // has asked at this step — serve the cached decision with a bumped
       // epoch. No tick-loop park, and the quorum_id is untouched
       // (membership unchanged by construction).
-      epoch_++;
+      fast_served_step_ = me.step();
+      fast_served_quorum_ = prev_quorum_;
+      serve_fast();
       prev_quorum_.set_epoch(epoch_);
-      fast_path_hits_++;
-      fill_response_locked(out, /*fast=*/true);
-      // Fleet health hint (docs/design/fleet_health.md): cached-aggregate
-      // read under fleet_mu_ + leaf digest locks only — the fast path's
-      // latency budget never pays for aggregation (bounded by the
-      // kFleetCacheMs recompute cap).
-      fill_fleet_hint(me.replica_id(), out->mutable_fleet());
       return true;
     }
     if (shutdown_ || now_ms() >= deadline) break;
@@ -1522,6 +1542,9 @@ bool Lighthouse::handle_quorum(const LighthouseQuorumRequest& r,
   }
   slow_path_served_++;
   fill_response_locked(out, /*fast=*/false);
+  // This member was parked at entry_seq, so the next cut holds it.
+  auto cut = cuts_.find(entry_seq + 1);
+  if (cut != cuts_.end()) *out->mutable_quorum() = cut->second;
   fill_fleet_hint(me.replica_id(), out->mutable_fleet());
   return true;
 }
@@ -1630,6 +1653,7 @@ void Lighthouse::adopt_replica_state(const ReplicateResponse& r) {
       epoch_ = std::max(epoch_, r.epoch());
       prev_ids_.clear();
       fast_round_step_ = -1;
+      fast_served_step_ = -1;
       for (const auto& m : prev_quorum_.participants()) {
         prev_ids_.insert(m.replica_id());
         fast_round_step_ = std::max(fast_round_step_, m.step());

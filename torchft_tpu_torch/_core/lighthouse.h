@@ -435,6 +435,15 @@ class Lighthouse {
   // collective), and the joiner is picked up by the next generation's slow
   // round.
   int64_t fast_round_step_ = -1;
+  // The decisions as they were served. A member answered after a faster
+  // peer has already asked at its next step must read its own round's
+  // decision, not the cache the peer has since moved on (which shows the
+  // peer alone at a higher max_step): the last few slow cuts by their
+  // broadcast_seq_, and the step generation last served fast with its
+  // quorum.
+  std::map<int64_t, Quorum> cuts_;
+  int64_t fast_served_step_ = -1;
+  Quorum fast_served_quorum_;
   int64_t fast_path_hits_ = 0;
   int64_t slow_path_served_ = 0;
   int64_t slow_path_rounds_ = 0;

@@ -7,10 +7,12 @@ Plays the role of the reference's pyo3 bridge: exposes embeddable
 (the TCPStore analogue). ctypes releases the GIL for every foreign call.
 
 The C++ sources under ``_core/`` are a verbatim copy of the JAX package's
-control plane, except ``lighthouse.cc``: it carries
-``_core/patches/fast_path_quorum.patch``, under which the quorum fast path
-answers only once every member has asked at the asker's step, so that no
-group counts fewer participants than its peers. The shared library is built from them with ``g++`` at first
+control plane, except ``lighthouse.cc`` and ``lighthouse.h``: they carry
+``_core/patches/fast_path_quorum.patch`` and ``fast_path_quorum_h.patch``,
+under which the quorum fast path answers only once every member has asked
+at the asker's step, and every member of a round reads the decision that
+round was given, so that no group counts fewer participants than its
+peers. The shared library is built from them with ``g++`` at first
 use into ``torchft_tpu_torch/_build/core/`` (never in the source tree),
 under an inter-process file lock so concurrent processes build once. The
 message classes the core includes as ``torchft.pb.h`` are generated from

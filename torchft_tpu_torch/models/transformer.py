@@ -14,13 +14,15 @@ Same recipe and numerics as the flax model:
   heads repeated.
 
 :func:`params_from_jax` maps a flax parameter tree onto this module's
-state dict, so the same weights can be run through both.
+state dict, so the same weights can be run through both, and
+:func:`diloco_state_from_jax` a JAX DiLoCo trainer's whole state onto the
+port's trainers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -350,4 +352,81 @@ def params_from_jax(flax_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out[pre + "attn_norm.scale"] = t(lp["attn_norm"]["scale"])
         out[pre + "mlp_norm.scale"] = t(lp["mlp_norm"]["scale"])
         i += 1
+    return out
+
+
+def _field(state: Any, name: str) -> Any:
+    """The first element of an optax state tuple (a chain's states, each
+    a NamedTuple) that has the field ``name``; ``None`` if none has."""
+    if hasattr(state, name):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _field(s, name)
+            if found is not None:
+                return found
+    return None
+
+
+def _momentum(trace: Any, convert: Callable[[Any], Dict[str, Any]]
+              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A params-shaped optax trace as SGD's ``momentum_buffer`` per
+    parameter name."""
+    return {n: {"momentum_buffer": t} for n, t in convert(trace).items()}
+
+
+def diloco_state_from_jax(state: Dict[str, Any],
+                          convert: Callable[[Any], Dict[str, torch.Tensor]]
+                          = params_from_jax,
+                          fragments: Optional[List[List[str]]] = None
+                          ) -> Dict[str, Any]:
+    """A JAX ``DiLoCoTrainer`` / ``StreamingDiLoCoTrainer`` state (its
+    ``state_dict()`` with numpy leaves) in the layout of the port's
+    trainers' ``state_dict``, for their ``load_state_dict``:
+
+    - ``params`` and ``anchor`` through ``convert``, which maps a tree
+      shaped like the JAX params onto ``{name: tensor}`` (default
+      :func:`params_from_jax`, the flax Transformer's tree);
+    - the optax inner state: Adam's ``mu`` / ``nu`` / ``count`` into
+      ``exp_avg`` / ``exp_avg_sq`` / ``step`` (a float32 scalar, as torch
+      keeps it), a ``trace`` into ``momentum_buffer``, nothing for plain
+      SGD;
+    - the outer ``trace`` into the outer SGD's ``momentum_buffer``; for a
+      streaming state, the per-fragment traces (each over its fragment's
+      leaves, in the JAX params' flatten order) regrouped by the port
+      trainer's ``fragments`` (its ``_frag_names``), with ``local_steps``.
+    """
+    from torchft_tpu_torch.local_sgd import _fragment_leaves
+    from torchft_tpu_torch.utils import tree_flatten, tree_unflatten
+
+    out: Dict[str, Any] = {"params": convert(state["params"]),
+                           "anchor": convert(state["anchor"])}
+    names = list(out["params"])
+    adam = _field(state["inner_state"], "mu")
+    if adam is not None:
+        step = torch.tensor(float(np.asarray(adam.count)),
+                            dtype=torch.float32)
+        mu, nu = convert(adam.mu), convert(adam.nu)
+        out["inner_state"] = {n: {"step": step.clone(), "exp_avg": mu[n],
+                                  "exp_avg_sq": nu[n]} for n in names}
+    else:
+        tr = _field(state["inner_state"], "trace")
+        mom = _momentum(tr.trace, convert) if tr is not None else {}
+        out["inner_state"] = {n: mom.get(n, {}) for n in names}
+    if "outer_states" not in state:
+        out["outer_state"] = _momentum(
+            _field(state["outer_state"], "trace").trace, convert)
+        return out
+    if fragments is None:
+        raise ValueError("a streaming state needs the port trainer's "
+                         "fragments")
+    leaves, treedef = tree_flatten(state["params"])
+    full: list = [None] * len(leaves)
+    for idx, ost in zip(_fragment_leaves(leaves, len(fragments)),
+                        state["outer_states"]):
+        for i, t in zip(idx, _field(ost, "trace").trace):
+            full[i] = t
+    mom = _momentum(tree_unflatten(treedef, full), convert)
+    out["outer_states"] = [{n: mom[n] for n in frag} for frag in fragments]
+    out["local_steps"] = int(state["local_steps"])
     return out
